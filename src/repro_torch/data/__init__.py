@@ -1,0 +1,4 @@
+"""Synthetic federated datasets (numpy, bit-identical to the reference)."""
+from repro_torch.data.federated import (ClientData,  # noqa: F401
+                                        eval_batch, make_federated_dataset,
+                                        sample_batches)

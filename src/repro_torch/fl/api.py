@@ -1,0 +1,608 @@
+"""Strategy/Scheduler API: one run surface, as in ``src/repro/fl/api.py``.
+
+  * :class:`Strategy` — the local update rule.  ``local_update(params,
+    batches, cstate) -> (delta, cstate, metrics)``; instances come from the
+    registry (``strategy("persafl", option="B")``).
+  * :class:`ApplyPolicy` — the server apply schedule: ``immediate()`` is
+    Algorithm 1's per-arrival apply, ``buffered(M)`` the FedBuff-style
+    M-deltas-per-round flush consumed straight from the bank through the
+    ``apply_rows`` weight vector, ``sync_barrier(m)`` FedAvg-family rounds
+    that wait for the slowest of m sampled clients.
+  * :class:`FLRun` — the event-loop core composing the two over a
+    :class:`DelayModel` timeline.
+
+The event timeline is numpy and Python (the heap of ``(t, client, kind)``
+events, ``FLRun.rng`` batch draws), so it is the reference's to the bit.
+
+Still to port (ROADMAP Queue 1): the ``fedprox``, ``scaffold`` and
+``personalize`` strategies, the robust flush (``buffered(robust=...)``), the
+device scheduler (``scheduler="device"``) and the scenario engine's
+``ChurnModel`` corruption.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import heapq
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import (PersAFLConfig, admission_weights,
+                              apply_buffered_rows, apply_update,
+                              client_update, init_server_state,
+                              split_batches_for_option)
+from repro_torch.core.server import staleness_stats
+from repro_torch.data.federated import sample_batches
+from repro_torch.device import resolve_device
+from repro_torch.fl.engine import CohortEngine, DeltaBank
+
+_NOT_PORTED = {"fedprox": "fl/algorithms.py", "scaffold": "fl/algorithms.py",
+               "personalize": "the serving slice"}
+
+
+@dataclasses.dataclass
+class History:
+    """Run trace shared by every schedule: accuracy-vs-simulated-time,
+    active-client ratio on a time grid (paper Figure 2a), and per-applied-
+    update staleness (empty for sync rounds).  ``loss`` is recorded beside
+    ``acc`` when the run's ``eval_fn`` reports one."""
+    times: List[float] = dataclasses.field(default_factory=list)
+    rounds: List[int] = dataclasses.field(default_factory=list)
+    acc: List[float] = dataclasses.field(default_factory=list)
+    loss: List[float] = dataclasses.field(default_factory=list)
+    active_times: List[float] = dataclasses.field(default_factory=list)
+    active_ratio: List[float] = dataclasses.field(default_factory=list)
+    staleness: List[int] = dataclasses.field(default_factory=list)
+    # simulated time at which the run stopped (clamped to max_time when
+    # that budget binds)
+    end_time: float = 0.0
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def _normalize_eval(result) -> Tuple[float, Optional[float]]:
+    """An ``eval_fn`` return as ``(acc, loss-or-None)``: a bare scalar, an
+    ``(acc, loss)`` pair, or a dict with ``"acc"`` and optional ``"loss"``."""
+    if isinstance(result, dict):
+        loss = result.get("loss")
+        return float(result["acc"]), None if loss is None else float(loss)
+    if isinstance(result, (tuple, list)):
+        if len(result) != 2:
+            raise ValueError(f"eval_fn returned a {len(result)}-sequence; "
+                             f"expected (acc, loss)")
+        return float(result[0]), float(result[1])
+    return float(result), None
+
+
+# ---------------------------------------------------------------------------
+# Strategy protocol + registry
+# ---------------------------------------------------------------------------
+
+class Strategy:
+    """A local update rule.
+
+    ``local_update(params, batches, cstate) -> (delta, cstate, metrics)`` is
+    one client's contribution against a frozen params snapshot; the delta
+    is params-shaped (bank-row compatible).  :meth:`bind` attaches the run's
+    (pcfg, loss_fn).
+    """
+
+    name = "strategy"
+    option = "A"        # batch-split layout, for introspection
+
+    def bind(self, pcfg: PersAFLConfig, loss_fn: Callable) -> "Strategy":
+        self.pcfg = pcfg
+        self.loss_fn = loss_fn
+        return self
+
+    def local_update(self, params, batches, cstate):
+        raise NotImplementedError
+
+
+_REGISTRY: Dict[str, Callable[..., Strategy]] = {}
+
+
+def register_strategy(*names):
+    """Class decorator: ``@register_strategy("name")`` makes the rule
+    constructible as ``strategy("name", **kw)``."""
+    def deco(factory):
+        for nm in names:
+            _REGISTRY[nm] = factory
+        return factory
+    return deco
+
+
+def strategy(name: str, **kw) -> Strategy:
+    """Construct a registered strategy: ``strategy("persafl", option="B")``."""
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"strategy {name!r} is not ported yet (it comes with "
+                f"{_NOT_PORTED[name]}; see ROADMAP.md Queue 1)") from None
+        raise ValueError(f"unknown strategy {name!r}; "
+                         f"have {sorted(_REGISTRY)}") from None
+    return factory(**kw)
+
+
+def strategy_names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_strategy(s) -> Strategy:
+    if isinstance(s, str):
+        return strategy(s)
+    if isinstance(s, Strategy):
+        return s
+    raise TypeError(f"strategy must be a name or a Strategy, got {type(s)}")
+
+
+@register_strategy("persafl")
+class PersAFLStrategy(Strategy):
+    """Algorithm 2, Options A/B/C: Q local steps of plain SGD (A), MAML (B)
+    or Moreau-envelope prox grads (C).  ``option=None`` takes the bound
+    pcfg's option."""
+
+    name = "persafl"
+
+    def __init__(self, option: Optional[str] = None):
+        self._option = option
+
+    def bind(self, pcfg, loss_fn):
+        self.option = self._option or pcfg.option
+        return super().bind(dataclasses.replace(pcfg, option=self.option),
+                            loss_fn)
+
+    def local_update(self, params, batches_3q, cstate):
+        delta, metrics = client_update(
+            self.pcfg, self.loss_fn, params,
+            split_batches_for_option(self.option, batches_3q))
+        return delta, None, metrics
+
+
+# the §5 baseline names are option presets of the same rule
+for _nm, _opt in (("fedavg", "A"), ("fedasync", "A"),
+                  ("perfedavg", "B"), ("pfedme", "C")):
+    _REGISTRY[_nm] = functools.partial(PersAFLStrategy, option=_opt)
+
+
+# ---------------------------------------------------------------------------
+# Apply policies (server schedules)
+# ---------------------------------------------------------------------------
+
+class ApplyPolicy:
+    """Server apply schedule.  ``kind="event"`` policies plug into the
+    async discrete-event loop via :meth:`on_upload`; ``kind="round"``
+    policies drive barrier rounds.  One instance per FLRun."""
+
+    kind = "event"
+    default_eval_every = 50
+
+    def start(self, run: "FLRun") -> None:
+        """Reset per-run policy state (called at the top of ``run()``)."""
+
+    def on_upload(self, run: "FLRun", now: float, rid: int, version: int,
+                  hist: History, eval_fn, eval_every: int) -> None:
+        raise NotImplementedError
+
+
+class Immediate(ApplyPolicy):
+    """Paper-faithful Algorithm 1: apply each delta the moment it lands
+    (staleness τ measured per update)."""
+
+    def on_upload(self, run, now, rid, version, hist, eval_fn, eval_every):
+        run._flush()
+        bank, idx = run._computed.pop(rid)
+        # per-row host materialization keeps the reference's single-delta
+        # semantics: one copy of the whole bank to the host, host views per
+        # row after that, and one copy of the row back per apply
+        delta = bank.row(idx)
+        # _t mirrors state.t on the host
+        staleness = run._t - version
+        hist.staleness.append(staleness)
+        run.state = apply_update(run.state, delta, run.pcfg.beta, staleness,
+                                 damping=run.pcfg.staleness_damping)
+        run._record_window(now, 1, [staleness])
+        run._t += 1
+        if eval_fn is not None and run._t % eval_every == 0:
+            run._record_eval(hist, now, eval_fn, run._t)
+
+
+class Buffered(ApplyPolicy):
+    """FedBuff-style buffered apply: arrivals accumulate in a size-M
+    buffer; a full buffer flushes as ONE w ← w − β/M ΣΔ server round
+    consumed straight from the on-device DeltaBank through the ``apply_rows``
+    weight vector (β/M, per-delta damping ``(1+τ)^{-a}`` and padding masks
+    are rows of one ``[bucket]`` array).  t advances in M-sized jumps;
+    staleness Σ/max are accounted per contributing delta.
+
+    ``robust="clip"`` / ``"trim"`` waits for the port of the robust half of
+    ``core/server.py`` and raises."""
+
+    def __init__(self, m: Optional[int] = None, *,
+                 robust: Optional[str] = None):
+        if robust is not None:
+            raise NotImplementedError(
+                f"buffered(robust={robust!r}) needs the robust half of "
+                f"core/server.py, which is not ported yet (ROADMAP.md "
+                f"Queue 1)")
+        self.m = m                # configured; None = the run's pcfg M
+
+    def start(self, run):
+        # resolved per run — m=None must re-read each run's buffer_size
+        self.m_effective = self.m if self.m is not None \
+            else max(int(run.pcfg.buffer_size), 1)
+        self._buffer: List[Tuple[int, int]] = []  # (rid, staleness)
+
+    def on_upload(self, run, now, rid, version, hist, eval_fn, eval_every):
+        staleness = run._t - version
+        hist.staleness.append(staleness)
+        self._buffer.append((rid, staleness))
+        if len(self._buffer) < self.m_effective:
+            return
+        run._flush()  # compute buffered AND in-flight pending deltas
+        m = len(self._buffer)
+        damping = run.pcfg.staleness_damping
+        # group the buffer's rows by owning DeltaBank (in-flight clients
+        # were computed in an earlier window's bank) and consume each bank
+        # on the device with one weight vector
+        groups: Dict[int, Tuple[DeltaBank, List[Tuple[int, int]]]] = {}
+        for r, s in self._buffer:
+            bank, idx = run._computed.pop(r)
+            groups.setdefault(id(bank), (bank, []))[1].append((idx, s))
+        t_old = run._t
+        for bank, rows in groups.values():
+            weights = admission_weights(bank.capacity, rows,
+                                        beta=run.pcfg.beta, count=m,
+                                        damping=damping)
+            run.state = apply_buffered_rows(
+                run.state, bank.stacked, weights, len(rows),
+                staleness_max=max(s for _, s in rows),
+                staleness_sum=float(sum(s for _, s in rows)))
+        run._record_window(now, m, [s for _, s in self._buffer])
+        self._buffer = []
+        run._t = t_old + m
+        # t jumps by M per flush: eval whenever a multiple of eval_every
+        # is crossed
+        if eval_fn is not None \
+                and run._t // eval_every > t_old // eval_every:
+            run._record_eval(hist, now, eval_fn, run._t)
+
+
+class SyncBarrier(ApplyPolicy):
+    """FedAvg-family synchronous rounds: sample m clients, wait for the
+    slowest, fold the cohort's bank into the params with one ``apply_rows``
+    pass (weights = β/m on real rows, 0 on padding)."""
+
+    kind = "round"
+    default_eval_every = 5
+
+    def __init__(self, m: int = 10):
+        self.m = m
+
+
+def immediate() -> Immediate:
+    return Immediate()
+
+
+def buffered(m: Optional[int] = None, *,
+             robust: Optional[str] = None) -> Buffered:
+    """``m=None`` takes ``pcfg.buffer_size`` at run time."""
+    return Buffered(m, robust=robust)
+
+
+def sync_barrier(m: int = 10) -> SyncBarrier:
+    return SyncBarrier(m)
+
+
+_SCHEDULES: Dict[str, Callable[[], ApplyPolicy]] = {
+    "immediate": immediate, "buffered": buffered,
+    "sync": sync_barrier, "sync_barrier": sync_barrier,
+}
+
+
+def resolve_schedule(s) -> ApplyPolicy:
+    if isinstance(s, str):
+        try:
+            return _SCHEDULES[s]()
+        except KeyError:
+            raise ValueError(f"unknown schedule {s!r}; "
+                             f"have {sorted(_SCHEDULES)}") from None
+    if isinstance(s, ApplyPolicy):
+        return s
+    raise TypeError(f"schedule must be a name or an ApplyPolicy, "
+                    f"got {type(s)}")
+
+
+# ---------------------------------------------------------------------------
+# FLRun — the one event-loop core
+# ---------------------------------------------------------------------------
+
+class FLRun:
+    """One federated run = a Strategy × an ApplyPolicy × a DelayModel, on
+    ``device`` (the card unless ``device="cpu"``).
+
+    Per-client compute is deferred: batches are recorded when a download
+    completes and materialized lazily in one :class:`CohortEngine` cohort
+    call right before the next server apply, so every delta is computed on
+    the snapshot the per-event path would have used.  ``vectorized=False``
+    keeps the per-event sequential dispatch.
+    """
+
+    def __init__(self, *, clients: List, loss_fn: Callable, init_params,
+                 pcfg: PersAFLConfig, delays,
+                 strategy="persafl", schedule="immediate",
+                 batch_size: int = 32, seed: int = 0,
+                 vectorized: bool = True, cohort_impl: str = "auto",
+                 scheduler: str = "auto", device="cuda"):
+        if scheduler not in ("auto", "heap", "device"):
+            raise ValueError(f"scheduler must be 'auto', 'heap' or "
+                             f"'device', got {scheduler!r}")
+        if scheduler == "device":
+            raise NotImplementedError(
+                "scheduler='device' needs fl/scenario/sched.py, which is not "
+                "ported yet (ROADMAP.md Queue 1); use 'heap' or 'auto'")
+        self.device = resolve_device(device)
+        self.clients = clients
+        self.pcfg = pcfg
+        self.delays = delays
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+        self.loss_fn = loss_fn
+        self.strategy = resolve_strategy(strategy).bind(pcfg, loss_fn)
+        self.schedule = resolve_schedule(schedule)
+        # the heap is the only scheduler until the device one is ported
+        self.scheduler = "heap"
+        self.state = init_server_state(init_params, self.device)
+        self.engine = CohortEngine(self.strategy.pcfg, loss_fn,
+                                   vectorized=vectorized,
+                                   cohort_impl=cohort_impl,
+                                   strategy=self.strategy,
+                                   device=self.device)
+        self._on_eval: Optional[Callable] = None
+        self._stop = False
+        self.final_stats: Optional[Dict] = None
+        self.scheduler_stats: Dict = {
+            "scheduler": self.scheduler, "windows": 0, "cohort_fill_sum": 0,
+            "cohort_fill_max": 0, "dropouts": 0}
+        self.window_log: List[Dict] = []
+        self._window_log_cap = 1024
+
+    # -- shared plumbing ---------------------------------------------------
+
+    @property
+    def params(self):
+        """The current global model w."""
+        return self.state.params
+
+    def _sample(self, i: int):
+        return sample_batches(self.clients[i], self.rng,
+                              3 * self.pcfg.q_local, self.batch_size)
+
+    @property
+    def stats(self) -> Dict:
+        """Engine + per-window scheduler counters in one dict."""
+        s = dict(self.engine.stats)
+        s.update(self.scheduler_stats)
+        s["mean_cohort_fill"] = (
+            self.scheduler_stats["cohort_fill_sum"]
+            / max(self.scheduler_stats["windows"], 1))
+        return s
+
+    def _record_window(self, now: float, fill: int, taus: List[int]) -> None:
+        """Per-server-apply bookkeeping: cohort fill and staleness spread;
+        the first ``_window_log_cap`` windows also get a record in
+        ``window_log``."""
+        st = self.scheduler_stats
+        st["windows"] += 1
+        st["cohort_fill_sum"] += fill
+        st["cohort_fill_max"] = max(st["cohort_fill_max"], fill)
+        if len(self.window_log) < self._window_log_cap:
+            self.window_log.append({
+                "window": st["windows"], "time": float(now),
+                "fill": int(fill),
+                "tau_mean": float(np.mean(taus)) if taus else 0.0,
+                "tau_max": int(max(taus)) if taus else 0,
+                "dropouts": st["dropouts"]})
+
+    def _flush(self) -> None:
+        """Materialize every pending client update in one cohort call.
+
+        Called right before any server apply: params have not changed since
+        these clients' downloads completed, so the whole cohort shares one
+        snapshot.  Deltas are recorded as (DeltaBank, row) handles."""
+        if not self._pending:
+            return
+        bank = self.engine.update_cohort(self.state.params,
+                                         [b for _, _, b in self._pending])
+        ids = np.asarray([i for _, i, _ in self._pending])
+        if self.delays.corruption_factors(ids) is not None:
+            raise NotImplementedError(
+                "delta corruption (the scenario engine's ChurnModel) is not "
+                "ported yet (ROADMAP.md Queue 1)")
+        for idx, (rid, _, _) in enumerate(self._pending):
+            self._computed[rid] = (bank, idx)
+        self._pending = []
+
+    def _record_eval(self, hist: History, now: float, eval_fn,
+                     t: int, notify: bool = True) -> None:
+        """Run one evaluation and append it to the History.  With
+        ``notify=True`` a ``"stop"`` from the run's ``on_eval`` callback
+        halts the loop after the current server apply."""
+        acc, loss = _normalize_eval(eval_fn(self.state.params))
+        hist.times.append(now)
+        hist.rounds.append(int(t))
+        hist.acc.append(acc)
+        if loss is not None:
+            hist.loss.append(loss)
+        if notify and self._on_eval is not None \
+                and self._on_eval(hist) == "stop":
+            self._stop = True
+
+    # -- the run surface ---------------------------------------------------
+
+    def run(self, *, max_rounds: Optional[int] = None,
+            max_server_rounds: Optional[int] = None,
+            eval_every: Optional[int] = None,
+            eval_fn: Optional[Callable] = None,
+            record_active_every: float = 5.0,
+            max_time: Optional[float] = None,
+            on_eval: Optional[Callable[[History], Optional[str]]] = None,
+            final_eval: bool = False) -> History:
+        """Drive the run to ``max_rounds`` server rounds (or ``max_time``
+        simulated seconds, whichever first) and return the :class:`History`.
+
+        ``on_eval(hist)`` is called after every recorded evaluation;
+        returning ``"stop"`` halts the loop cleanly.  ``final_eval=True``
+        forces one evaluation at the stop time if the last one is stale.
+        """
+        if max_rounds is None:
+            max_rounds = max_server_rounds
+        if max_rounds is None:
+            raise TypeError("run() needs max_rounds=")
+        if eval_every is None:
+            eval_every = self.schedule.default_eval_every
+        self._on_eval = on_eval
+        self._stop = False
+        self.schedule.start(self)
+        if self.schedule.kind == "round":
+            hist = self._run_rounds(max_rounds, eval_every, eval_fn,
+                                    record_active_every, max_time)
+        else:
+            hist = self._run_events(max_rounds, eval_every, eval_fn,
+                                    record_active_every, max_time)
+        if final_eval and eval_fn is not None:
+            t_now = int(self.state.t)
+            if not hist.rounds or hist.rounds[-1] != t_now:
+                self._record_eval(hist, hist.end_time, eval_fn, t_now,
+                                  notify=False)
+        self.final_stats = {k: np.asarray(v) for k, v
+                            in staleness_stats(self.state).items()}
+        return hist
+
+    # -- event-driven core (immediate / buffered schedules) ----------------
+
+    def _heap_events(self):
+        """Per-event heap scheduler as an infinite event generator.
+
+        Yields ``(t, client, kind, dropped, t_up)`` with kind 0 = download
+        complete, 1 = upload complete.  Heap keys are ``(t, client, kind)``,
+        the reference's deterministic total order on events."""
+        heap: List[Tuple[float, int, int]] = []
+        for i in range(len(self.clients)):
+            heapq.heappush(heap,
+                           (self.delays.sample_download(i, 0.0), i, 0))
+        while True:
+            now, i, kind = heapq.heappop(heap)
+            if kind == 0:
+                dropped = self.delays.drops(i)
+                t_up = now + self.delays.sample_upload(i, now)
+                if dropped:
+                    heapq.heappush(
+                        heap,
+                        (t_up + self.delays.sample_download(i, t_up), i, 0))
+                else:
+                    heapq.heappush(heap, (t_up, i, 1))
+                yield now, i, 0, dropped, t_up
+            else:
+                heapq.heappush(
+                    heap,
+                    (now + self.delays.sample_download(i, now), i, 0))
+                yield now, i, 1, False, now
+
+    def _run_events(self, max_rounds, eval_every, eval_fn,
+                    record_active_every, max_time) -> History:
+        hist = History()
+        n = len(self.clients)
+        now = 0.0
+        next_active_t = 0.0
+        busy_up = {i: None for i in range(n)}  # upload finish times
+        inflight: Dict[int, Tuple[int, int]] = {}  # client -> (rid, version)
+        self._pending: List[Tuple[int, int, Dict]] = []  # (rid, client, b)
+        self._computed: Dict[int, Tuple] = {}   # rid -> (DeltaBank, row)
+        self._t = int(self.state.t)             # host-side round mirror
+        next_rid = 0
+
+        for now_e, i, kind, dropped, t_up in self._heap_events():
+            if self._t >= max_rounds:
+                break
+            if max_time is not None and now_e > max_time:
+                # the event lies past the budget: it does not run, and the
+                # clock stops at the budget
+                now = max_time
+                break
+            now = now_e
+            # record active ratio on a time grid: active = comp./uploading
+            while next_active_t <= now:
+                up_now = sum(1 for v in busy_up.values()
+                             if v is not None and v > next_active_t)
+                hist.active_times.append(next_active_t)
+                hist.active_ratio.append(up_now / n)
+                next_active_t += record_active_every
+            if kind == 0:                       # download complete
+                if dropped:
+                    self.scheduler_stats["dropouts"] += 1
+                    continue
+                rid = next_rid
+                next_rid += 1
+                self._pending.append((rid, i, self._sample(i)))
+                busy_up[i] = t_up
+                inflight[i] = (rid, self._t)
+            else:                               # upload complete
+                rid, version = inflight.pop(i)
+                self.schedule.on_upload(self, now, rid, version, hist,
+                                        eval_fn, eval_every)
+                busy_up[i] = None
+                if self._stop:
+                    break
+        # close out the active-ratio grid to the actual stop time
+        while next_active_t <= now:
+            up_now = sum(1 for v in busy_up.values()
+                         if v is not None and v > next_active_t)
+            hist.active_times.append(next_active_t)
+            hist.active_ratio.append(up_now / n)
+            next_active_t += record_active_every
+        hist.end_time = now
+        return hist
+
+    # -- barrier-round core (sync_barrier schedule) ------------------------
+
+    def _run_rounds(self, max_rounds, eval_every, eval_fn,
+                    record_active_every, max_time) -> History:
+        hist = History()
+        n = len(self.clients)
+        m = self.schedule.m
+        now = 0.0
+        next_active_t = 0.0
+        for rnd in range(max_rounds):
+            sel = self.rng.choice(n, m, replace=False)
+            batches = [self._sample(int(i)) for i in sel]
+            bank = self.engine.update_cohort(self.state.params, batches)
+            finish = [self.delays.sample_download(int(i), now)
+                      + self.delays.sample_upload(int(i), now) for i in sel]
+            round_len = max(finish)
+            # active-ratio grid: client i is busy until its own finish time
+            while next_active_t <= now + round_len:
+                rel = next_active_t - now
+                busy = sum(1 for f in finish if f > rel)
+                hist.active_times.append(next_active_t)
+                hist.active_ratio.append(busy / n)
+                next_active_t += record_active_every
+            now += round_len
+            # the mean and the β-scaled apply fuse into one apply_rows pass
+            # (weights = β/m on real rows, 0 on bucket padding); one server
+            # round per barrier, staleness 0 by construction
+            weights = np.zeros(bank.capacity, np.float32)
+            weights[:len(batches)] = self.pcfg.beta / len(batches)
+            self.state = apply_buffered_rows(self.state, bank.stacked,
+                                             weights, 1, staleness_max=0,
+                                             staleness_sum=0.0)
+            if eval_fn is not None and (rnd + 1) % eval_every == 0:
+                self._record_eval(hist, now, eval_fn, rnd + 1)
+            if self._stop or (max_time is not None and now >= max_time):
+                break
+        hist.end_time = now
+        return hist

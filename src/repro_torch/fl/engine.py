@@ -1,0 +1,203 @@
+"""Vectorized cohort execution engine with an on-device DeltaBank, as in
+``src/repro/fl/engine.py``.
+
+Between two server applies the global params are frozen, so every client
+whose compute window falls in that interval sees the same weights and their
+Q-step local updates are independent.  :class:`CohortEngine` runs such a
+cohort in one call: ``torch.func.vmap`` over clients (the default on the
+card), or a Python loop over them (``"map"``, the default on the CPU).
+Cohorts are padded up to power-of-two buckets, as in the reference, so a
+bank's capacity takes O(log max_cohort) values; ``padding_waste`` counts the
+padding rows computed.
+
+DeltaBank contract:
+
+  * ``update_cohort`` returns a :class:`DeltaBank`: a handle to the stacked
+    ``[bucket, ...]`` per-client delta buffer, which stays on the device.
+  * Bulk consumers (buffered/sync applies) read ``bank.stacked`` and reduce
+    it on the device through ``apply_rows`` with a per-row weight vector, so
+    no per-client delta crosses to the host.
+  * Row consumers (the immediate apply) call ``bank.row(i)``: the first
+    access copies the whole stack to the host once (counted in
+    ``stats["host_materializations"]``) and every row after that is a host
+    view.
+
+The per-event sequential path is kept behind ``vectorized=False``.  The
+reference's ``"shard_map"`` cohort, stateful strategies (SCAFFOLD's stacked
+client state) and the serving bank hooks come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch.convert import to_tensor
+from repro_torch.core import client_update, split_batches_for_option
+from repro_torch.core.types import PersAFLConfig
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _stack(trees: List):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+class DeltaBank:
+    """Handle to a stacked ``[capacity, ...]`` per-client delta buffer.
+
+    ``stacked`` is the device buffer (rows ≥ ``k`` are bucket padding);
+    rows cross to the host only through :meth:`row` — one copy of the whole
+    stack on first access, host views afterwards.  Iterating yields the
+    ``k`` real rows in cohort order.
+    """
+
+    def __init__(self, stacked=None, k: int = 0,
+                 stats: Optional[Dict] = None, rows: Optional[List] = None):
+        self._stacked = stacked
+        self._rows = rows          # per-event path: one delta tree per row
+        self.k = k if rows is None else len(rows)
+        self._stats = stats if stats is not None else {}
+        self._host = None
+        self._device = None if stacked is None \
+            else tree_leaves(stacked)[0].device
+
+    @property
+    def capacity(self) -> int:
+        if self._rows is not None:
+            return self.k
+        tree = self._stacked if self._stacked is not None else self._host
+        return tree_leaves(tree)[0].shape[0]
+
+    @property
+    def stacked(self):
+        """The ``[capacity, ...]`` device buffer (stacked lazily when the
+        bank was built from per-event rows; copied back if host
+        materialization already released the device copy)."""
+        if self._stacked is None:
+            if self._rows is not None:
+                self._stacked = _stack(self._rows)
+            else:
+                self._stacked = tree_map(lambda x: x.to(self._device),
+                                         self._host)
+        return self._stacked
+
+    def row(self, i: int):
+        """Materialize row ``i`` on the host (lazy, whole-stack-at-once)."""
+        if self._rows is not None:
+            return self._rows[i]
+        if self._host is None:
+            self._stats["host_materializations"] = \
+                self._stats.get("host_materializations", 0) + 1
+            self._host = tree_map(lambda x: x.cpu(), self._stacked)
+            # release the device buffer — rows serve from host views now,
+            # and holding both copies would double delta residency
+            self._stacked = None
+        return tree_map(lambda x: x[i], self._host)
+
+    def __len__(self) -> int:
+        return self.k
+
+    def __getitem__(self, i: int):
+        if not -self.k <= i < self.k:
+            raise IndexError(i)
+        return self.row(i % self.k)
+
+    def __iter__(self):
+        return (self.row(i) for i in range(self.k))
+
+
+class CohortEngine:
+    """Batched ``client_update`` over a cohort of clients on ``device``.
+
+    ``cohort_impl`` picks how the cohort axis is mapped:
+      * ``"vmap"`` — ``torch.func.vmap`` over clients: the whole cohort's
+        local updates run as one batched computation (default on CUDA).
+      * ``"map"``  — a Python loop over the cohort's rows, stacked after
+        (default on the CPU).
+    Both are the same math.  ``strategy`` is a bound
+    :class:`repro_torch.fl.api.Strategy` whose ``local_update`` replaces the
+    built-in Algorithm-2 ``client_update``.
+    """
+
+    def __init__(self, pcfg: PersAFLConfig, loss_fn: Callable, *,
+                 vectorized: bool = True, cohort_impl: str = "auto",
+                 strategy=None, device="cuda"):
+        self.device = resolve_device(device)
+        self.pcfg = pcfg
+        self.loss_fn = loss_fn
+        self.vectorized = vectorized
+        if cohort_impl == "auto":
+            cohort_impl = "vmap" if self.device.type == "cuda" else "map"
+        if cohort_impl not in ("vmap", "map"):
+            raise ValueError(
+                f"cohort_impl must be 'auto', 'vmap' or 'map', got "
+                f"{cohort_impl!r} (the 'shard_map' cohort comes with the "
+                f"multi-device slice)")
+        self.cohort_impl = cohort_impl
+        self.stats: Dict[str, int] = {"cohort_calls": 0, "clients": 0,
+                                      "max_cohort": 0, "padding_waste": 0,
+                                      "host_materializations": 0}
+        self.strategy = strategy
+        if strategy is not None:
+            def _one(params, batches):
+                delta, _, _ = strategy.local_update(params, batches, None)
+                return delta
+        else:
+            def _one(params, batches_3q):
+                batches = split_batches_for_option(pcfg.option, batches_3q)
+                delta, _ = client_update(pcfg, loss_fn, params, batches)
+                return delta
+        self._one = _one
+
+    def _bucket(self, k: int) -> int:
+        """Pow2 bucket of a k-client cohort."""
+        return 1 << max(k - 1, 0).bit_length()
+
+    def _to_device(self, host_tree):
+        return tree_map(lambda x: to_tensor(x, self.device), host_tree)
+
+    def _pad_stack(self, batch_list: List):
+        """Pad to the bucket size, record stats, stack on the host and copy
+        each leaf to the device once."""
+        k = len(batch_list)
+        bucket = self._bucket(k)
+        self.stats["cohort_calls"] += 1
+        self.stats["clients"] += k
+        self.stats["max_cohort"] = max(self.stats["max_cohort"], k)
+        self.stats["padding_waste"] += bucket - k
+        padded = list(batch_list) + [batch_list[-1]] * (bucket - k)
+        stacked = tree_map(lambda *xs: np.stack(xs), *padded)
+        return self._to_device(stacked), k
+
+    def update_cohort(self, params, batch_list: List) -> DeltaBank:
+        """Run the local update rule for every client in the cohort.
+
+        ``batch_list``: one 3Q-leading-dim batch tree per client (the raw
+        ``sample_batches`` output, numpy).  Returns a :class:`DeltaBank` over
+        the per-client deltas in the same order.  All clients are computed
+        against the same ``params`` (on the engine's device).
+        """
+        k = len(batch_list)
+        if k == 0:
+            return DeltaBank(rows=[], stats=self.stats)
+        if not self.vectorized:
+            self.stats["cohort_calls"] += 1
+            self.stats["clients"] += k
+            self.stats["max_cohort"] = max(self.stats["max_cohort"], k)
+            return DeltaBank(rows=[self._one(params, self._to_device(b))
+                                   for b in batch_list], stats=self.stats)
+        stacked, k = self._pad_stack(batch_list)
+        if self.cohort_impl == "vmap":
+            # vmap may hand the cohort axis back as a strided view; the
+            # apply kernels take contiguous rows
+            deltas = tree_map(lambda x: x.contiguous(),
+                              vmap(lambda b: self._one(params, b))(stacked))
+        else:
+            bucket = tree_leaves(stacked)[0].shape[0]
+            deltas = _stack([self._one(params,
+                                       tree_map(lambda x: x[r], stacked))
+                             for r in range(bucket)])
+        return DeltaBank(stacked=deltas, k=k, stats=self.stats)

@@ -1,0 +1,52 @@
+"""Tree fronts for the server-apply kernels, one launch per param leaf.
+
+``mode`` picks the implementation per leaf:
+
+  * ``"auto"``   -- the CUDA kernel for a CUDA tensor, the plain version for
+    a CPU tensor;
+  * ``"kernel"`` -- the CUDA kernel (which raises on a CPU tensor);
+  * ``"ref"``    -- the plain version on any device.
+
+The reference's ``"seq"`` mode and its dispatch for stacks that span several
+devices (``src/repro/kernels/fused_update/ops.py:83-94``, ``:181-186``) come
+with the port's multi-device slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fused_update import kernel as K
+from repro_torch.kernels.fused_update import ref as R
+from repro_torch.tree import tree_map
+
+_MODES = ("auto", "kernel", "ref")
+
+
+def _pick(kernel_fn, ref_fn, mode: str, leaf: torch.Tensor):
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r} (the "
+                         f"'seq' mode comes with the multi-device slice)")
+    if mode == "ref" or (mode == "auto" and leaf.device.type == "cpu"):
+        return ref_fn
+    return kernel_fn
+
+
+def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
+    """Server apply w ← w − s·Δ over a params tree, one pass per leaf.
+
+    ``scale`` is a host float (β, β/M, or the damped β/(1+τ)^a)."""
+    return tree_map(
+        lambda w, d: _pick(K.apply_scaled, R.apply_scaled_ref, mode, w)(
+            w, d, scale), w_tree, d_tree)
+
+
+def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,
+                    mode: str = "auto"):
+    """Stacked server apply w ← w − Σᵢ weights[i]·Δᵢ per leaf, one pass each.
+
+    ``stack_tree`` is a DeltaBank buffer: a params-shaped tree whose leaves
+    carry a leading ``[M]`` cohort axis; ``weights`` is the ``[M]`` float32
+    row-weight vector on the params' device."""
+    return tree_map(
+        lambda w, d: _pick(K.apply_rows, R.apply_rows_ref, mode, w)(
+            w, d, weights), w_tree, stack_tree)

@@ -1,0 +1,44 @@
+"""The port stands alone: importing every ``repro_torch`` module and
+``chip_smoke.py`` loads neither JAX nor any module of the JAX package
+(``repro`` or ``repro.*``; ``repro_torch`` itself only shares the prefix),
+and imports compile nothing."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from repro_torch.kernels import _build
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad,
+                  "loaded": sorted(_build._LOADED)}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", PROBE,
+                           str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["loaded"] == []          # no kernel is built at import
+    for name in ("repro_torch.fl.api", "repro_torch.fl.engine",
+                 "repro_torch.kernels.fused_update.kernel",
+                 "repro_torch.core.server", "repro_torch.convert"):
+        assert name in out["modules"]

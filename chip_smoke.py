@@ -27,6 +27,18 @@ Phases; any failure exits non-zero and prints no result line:
   4. checks  -- both kernels were launched in (a)-(d), params are finite,
      and the first 8 rounds of (a) and (b), run on the card and on the CPU,
      give the same event timeline and params within PARAM_ATOL.
+  5. serving -- (e) the personalization server on the same 30 users
+     (``PersonalizationServer(device="cuda")``, Option C, λ = 25, K = 5,
+     η_in = 0.02, β = 1, 16 images per request): 12 windows with fp32 and
+     with int8 delta banking (a few users resubmitted at every third window
+     are applied one window late, τ = 1), 4 windows head-only int8
+     (``personal_subset="fc/#1"``) and 4 windows of mode B.  Launch counters
+     are zeroed just before (e) and read just after.  Checks: no host
+     materialization, int8/fp32 ring bytes per user ≥ RING_RATIO,
+     personalized accuracy of the two 12-window servers within ACC_GAP,
+     ``apply_rows_q`` (and ``apply_rows``) launched once per leaf per
+     contributing bank, and the first 3 int8 windows on the CPU within the
+     tolerance stated at ``serving_cpu_parity``.
 
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
@@ -41,11 +53,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 SOURCE = "src/repro_torch/csrc/fused_update.cu"
 REPLACES = {"apply_scaled": "src/repro/kernels/fused_update/kernel.py:229",
-            "apply_rows": "src/repro/kernels/fused_update/kernel.py:129"}
+            "apply_rows": "src/repro/kernels/fused_update/kernel.py:129",
+            "apply_rows_q": "src/repro/kernels/fused_update/kernel.py:186"}
 # CPU-vs-card agreement of the 8-round runs.  The card's cuDNN and the CPU's
 # oneDNN sum the f32 convolutions in different orders, so every gradient
 # differs in its last bits; Option C then forms λ(w − θ̃) from two nearly
@@ -65,6 +80,7 @@ ACC_ATOL = 0.01
 # result fail these limits.
 TOLS = {"apply_scaled": dict(atol=1e-6, rtol=0.0),
         "apply_rows": dict(atol=1e-5, rtol=1e-4),
+        "apply_rows_q": dict(atol=1e-5, rtol=1e-4),
         "bf16": dict(atol=1e-5, rtol=2.0 ** -7)}
 # bank-sized kernel cases, (n, w dtype, d dtype) and (M, n, w dtype, d
 # dtype), beside the CNN's leaves.  Ragged n leaves a tail past every
@@ -78,8 +94,26 @@ ROWS_CASES = ((1, 2 ** 20 + 5, "f32", "f32"), (8, 2 ** 20 + 5, "f32", "f32"),
               (1500, 2 ** 18 + 5, "f32", "f32"), (8, 2 ** 24, "f32", "f32"),
               (8, 2 ** 20 + 5, "bf16", "bf16"),
               (8, 2 ** 20 + 5, "f32", "bf16"))
+# apply_rows_q, (M, n, w dtype), beside the CNN's leaves at M = 32 (a
+# 30-user window in its pow2 bucket): M = 1500 crosses the 1024-row
+# coefficient chunk; bf16 at M = 300 is past the TPU kernel's 128-row chunk,
+# where only the plain version computes the port's function
+ROWS_Q_CASES = ((1, 2 ** 20 + 5, "f32"), (8, 2 ** 20 + 5, "f32"),
+                (300, 2 ** 20 + 5, "f32"), (1500, 2 ** 20 + 5, "f32"),
+                (8, 2 ** 24, "f32"), (8, 2 ** 20 + 5, "bf16"),
+                (300, 2 ** 20 + 5, "bf16"))
 FIG2 = dict(q_local=10, beta=1.0, alpha=0.01, lam=25.0, inner_steps=10,
             inner_eta=0.02, maml_mode="full")
+# serving phase (e): the quant bench's convergence configuration
+# (benchmarks/run.py:806-940) at full width, 30 users, 16 images per request
+SERVE = dict(option="C", lam=25.0, inner_steps=5, inner_eta=0.02, beta=1.0,
+             alpha=0.01)
+SERVE_WINDOWS, SERVE_BATCH, SERVE_STRAGGLERS = 12, 16, 4
+# int8 vs fp32 banking after 12 windows: the quant bench's gate 4
+ACC_GAP = 0.1
+# bytes per user of the int8 ring against the fp32 ring: the quant bench's
+# gate 2
+RING_RATIO = 3.5
 
 
 class SmokeFailure(Exception):
@@ -130,7 +164,7 @@ def kernel_phase(torch, cnn_shapes):
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     f32, bf16 = torch.float32, torch.bfloat16
-    results = {"apply_scaled": [], "apply_rows": []}
+    results = {"apply_scaled": [], "apply_rows": [], "apply_rows_q": []}
 
     def randn(*shape, scale=1.0, dtype=f32):
         return (scale * torch.randn(*shape, device=dev, generator=g)
@@ -164,6 +198,17 @@ def kernel_phase(torch, cnn_shapes):
             nbytes = sum(2 * w.numel() * w.element_size()
                          + d.numel() * d.element_size()
                          for w, d in zip(ws, ds))
+        elif name == "apply_rows_q":
+            sw, sc = extra
+            kern = lambda: [K.apply_rows_q(w, q, sc, sw)  # noqa: E731
+                            for w, q in zip(ws, ds)]
+            plain = lambda: [R.apply_rows_q_ref(w, q, sc, sw)  # noqa: E731
+                             for w, q in zip(ws, ds)]
+            # no PyTorch call takes an int8 stack with row scales: addmv
+            # over a dequantized f32 stack is another input, not this one
+            lib = None
+            nbytes = sum(q.numel() + 2 * w.numel() * w.element_size()
+                         + 8 * sw.numel() for w, q in zip(ws, ds))
         else:
             sw = extra
             swl = sw.to(ws[0].dtype)
@@ -241,6 +286,30 @@ def kernel_phase(torch, cnn_shapes):
             sw[1018:1030] = 0.0
         run_case("apply_rows", f"M={m} n={n} {dname(dw, dd)}", [w], [d], sw)
         del w, d
+
+    def q_inputs(m, shapes):
+        # int8 codes over the full range, scales of order 1/127 and weights
+        # rand/sqrt(M), so the update is of the order of w; every third row
+        # is a padding row (weight 0, scale 0) and must stay inert
+        qs = [torch.randint(-127, 128, (m, *sh), device=dev, generator=g,
+                            dtype=torch.int8) for sh in shapes]
+        sc = (0.5 + torch.rand(m, device=dev, generator=g)) / 127.0
+        sw = row_weights(m)
+        sc[1::3] = 0.0
+        if m > 1024:
+            sw[1018:1030] = 0.0
+            sc[1018:1030] = 0.0
+        return qs, (sw, sc)
+
+    qs, extra = q_inputs(32, cnn_shapes)
+    ws = [randn(*sh, scale=0.5) for sh in cnn_shapes]
+    run_case("apply_rows_q", "MNIST_CNN 8 leaves M=32 f32", ws, qs, extra)
+    del ws, qs
+    for m, n, dw in ROWS_Q_CASES:
+        w = randn(n, scale=0.5, dtype=dtypes[dw])
+        qs, extra = q_inputs(m, [(n,)])
+        run_case("apply_rows_q", f"M={m} n={n} {dw}", [w], qs, extra)
+        del w, qs
     torch.cuda.empty_cache()
     return results
 
@@ -325,23 +394,22 @@ def main_path(torch, setup):
               f"mean active ratio {float(sum(hist.active_ratio)) / max(len(hist.active_ratio), 1):.4f}, "
               f"max staleness {max(hist.staleness, default=0)}, "
               f"stats {json.dumps(run.stats)}", flush=True)
-    launches = dict(K.LAUNCHES)
+    launches = {k: K.LAUNCHES[k] for k in ("apply_scaled", "apply_rows")}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     return launches, hists
 
 
-def profile_phase(torch, setup, rounds: int = 10):
-    """Device busy share of the first ``rounds`` rounds of (a) under
-    ``torch.profiler``: the CUDA kernels' summed time over the wall time."""
+def profile_phase(torch, label: str, fn):
+    """Device busy share of ``fn()`` under ``torch.profiler``: the CUDA
+    kernels' summed time over the wall time, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
-    run = make_run(torch, setup, "a", "cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run.run(max_rounds=rounds, eval_every=rounds, eval_fn=setup[3])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -351,11 +419,18 @@ def profile_phase(torch, setup, rounds: int = 10):
     for e in kernels:
         top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
     top5 = sorted(top.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile (a) {rounds} rounds: wall {wall:.3f} s, device kernels "
+    print(f"profile {label}: wall {wall:.3f} s, device kernels "
           f"{len(kernels)}, device busy {busy_us / 1e6:.3f} s "
           f"({100 * busy_us / 1e6 / wall:.2f}% of wall), top "
           f"{json.dumps([(n[:60], round(t / 1e3, 3)) for n, t in top5])} "
           f"(ms)", flush=True)
+
+
+def profile_training(torch, setup, rounds: int = 10):
+    """The first ``rounds`` rounds of (a)."""
+    run = make_run(torch, setup, "a", "cuda")
+    profile_phase(torch, f"(a) {rounds} rounds", lambda: run.run(
+        max_rounds=rounds, eval_every=rounds, eval_fn=setup[3]))
 
 
 def cpu_parity(torch, setup, main_hists):
@@ -401,6 +476,190 @@ def cpu_parity(torch, setup, main_hists):
                                     f"{acc_diff}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serving path
+# ---------------------------------------------------------------------------
+
+def serve_batches(clients, windows: int, seed: int = 0):
+    """One request batch per user per window, drawn from the user's own
+    training data by a seeded numpy generator."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(windows):
+        row = []
+        for c in clients:
+            idx = rng.randint(0, c.n_train, SERVE_BATCH)
+            row.append({"images": c.train_x[idx], "labels": c.train_y[idx]})
+        out.append(row)
+    return out
+
+
+def drive_server(torch, srv, batches, windows: int, mode: str = "C",
+                 stragglers: bool = True, after=None):
+    """``windows`` aggregation windows: every user submits, the queue is
+    flushed and every user's head gathered; at every third window a few
+    users submit again after the flush and the window closes without
+    flushing them, so the next window applies them with τ = 1.  Returns the
+    number of contributing banks per window and the requests submitted."""
+    uids = [f"user{u}" for u in range(len(batches[0]))]
+    banks, submitted = [], 0
+    for w in range(windows):
+        for uid, b in zip(uids, batches[w]):
+            srv.submit(uid, b, mode=mode)
+        submitted += len(uids)
+        srv.flush()
+        srv.stacked_heads(uids)
+        banks.append(len({id(b) for b, _, _ in srv.ring._pending}))
+        if stragglers and w % 3 == 1:
+            for uid, b in zip(uids[:SERVE_STRAGGLERS], batches[w]):
+                srv.submit(uid, b, mode=mode)
+            submitted += SERVE_STRAGGLERS
+            srv.advance_window(flush=False)
+        else:
+            srv.advance_window()
+        if after is not None:
+            after(w, srv)
+    torch.cuda.synchronize()
+    return banks, submitted
+
+
+def serving_phase(torch, setup):
+    """(e): PersonalizationServer on the card, fp32 and int8 banking, 12
+    windows each, then a head-only int8 server and a mode-B server for 4
+    windows; counts zeroed just before and read just after.  Then the first
+    3 int8 windows again on the CPU."""
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.serving import PersonalizationServer
+    from repro_torch.tree import tree_leaves
+    clients, params, loss, ev = setup
+    pcfg = PersAFLConfig(**SERVE)
+    batches = serve_batches(clients, SERVE_WINDOWS)
+    n_leaves = len(tree_leaves(params))
+    runs = {
+        # name: (server kwargs, windows, mode, stragglers)
+        "fp32": (dict(delta_dtype="fp32", modes=("C",)), SERVE_WINDOWS,
+                 "C", True),
+        "int8": (dict(delta_dtype="int8", modes=("C",)), SERVE_WINDOWS,
+                 "C", True),
+        "int8 head-only": (dict(delta_dtype="int8", modes=("C",),
+                                personal_subset="fc/#1"), 4, "C", False),
+        "fp32 mode B": (dict(delta_dtype="fp32", modes=("B",)), 4, "B",
+                        False),
+    }
+    out, expect = {}, {"apply_rows": 0, "apply_rows_q": 0}
+    snap3 = {}
+
+    def keep_third(w, srv):
+        # the int8 server's params after its first 3 windows, and the
+        # largest row scale its banks used, for the CPU comparison
+        if w == 2:
+            snap3["params"] = [x.detach().cpu() for x in
+                               tree_leaves(srv.params)]
+            snap3["max_scale"] = max(
+                float(sc.max()) for bs in srv.ring._banks.values()
+                for b in bs for sc in tree_leaves(b.stacked.scales))
+            snap3["codes"] = [x.cpu() for x in tree_leaves(
+                srv.ring._banks[0][0].stacked.q)]
+    K.reset_launches()
+    for name, (kw, windows, mode, strag) in runs.items():
+        srv = PersonalizationServer(params, loss, pcfg, max_pending=64,
+                                    device="cuda", **kw)
+        leaves = len(tree_leaves(srv.personal_subset.extract(params))) \
+            if srv.personal_subset is not None else n_leaves
+        t0 = time.perf_counter()
+        banks, submitted = drive_server(
+            torch, srv, batches, windows, mode, strag,
+            after=keep_third if name == "int8" else None)
+        wall = time.perf_counter() - t0
+        st = srv.stats
+        kern = "apply_rows_q" if kw["delta_dtype"] == "int8" \
+            else "apply_rows"
+        expect[kern] += leaves * sum(banks)
+        acc = float(ev(srv.params)) if windows == SERVE_WINDOWS else None
+        out[name] = dict(wall_per_window_s=wall / windows,
+                         requests_per_s=submitted / wall,
+                         requests=submitted, banks=banks, acc=acc,
+                         stats={k: st[k] for k in (
+                             "host_materializations", "ring_row_bytes",
+                             "ring_bytes_per_user",
+                             "ring_bytes_per_user_fp32", "ring_admitted",
+                             "ring_stragglers", "ring_dropped",
+                             "cohort_calls", "padding_waste")})
+        check(finite(torch, srv.params), f"serving ({name}): params not "
+                                         f"finite")
+        check(st["host_materializations"] == 0,
+              f"serving ({name}): {st['host_materializations']} host "
+              f"materializations")
+        print(f"serving ({name}) {windows} windows: wall per window "
+              f"{wall / windows:.4f} s, {submitted / wall:.1f} requests/s, "
+              f"banks per window {banks}, acc {acc}, "
+              f"stats {json.dumps(out[name]['stats'])}", flush=True)
+    launches = {k: K.LAUNCHES[k] for k in ("apply_rows", "apply_rows_q")}
+    bpu = {k: out[k]["stats"]["ring_bytes_per_user"]
+           for k in ("fp32", "int8")}
+    ratio = bpu["fp32"] / bpu["int8"]
+    gap = abs(out["fp32"]["acc"] - out["int8"]["acc"])
+    print(f"serving ring_bytes_per_user fp32 {bpu['fp32']} int8 "
+          f"{bpu['int8']} ratio {ratio:.4f}; personalized acc fp32 "
+          f"{out['fp32']['acc']} int8 {out['int8']['acc']} gap {gap:.4f}; "
+          f"launches {json.dumps(launches)} expected {json.dumps(expect)}",
+          flush=True)
+    check(ratio >= RING_RATIO, f"serving: ring ratio {ratio} < {RING_RATIO}")
+    check(gap <= ACC_GAP, f"serving: accuracy gap {gap} > {ACC_GAP}")
+    for k in launches:
+        check(launches[k] == expect[k] > 0,
+              f"serving: {k} launched {launches[k]} times, expected one "
+              f"per leaf per contributing bank, {expect[k]}")
+    serving_cpu_parity(torch, setup, pcfg, batches, snap3)
+    # where a window's time goes: 3 windows of a fresh int8 server
+    srv = PersonalizationServer(params, loss, pcfg, max_pending=64,
+                                device="cuda", delta_dtype="int8",
+                                modes=("C",))
+    profile_phase(torch, "(e) int8 3 windows", lambda: drive_server(
+        torch, srv, batches, 3, stragglers=False))
+    return launches, out
+
+
+# CPU-vs-card agreement of the first 3 int8 windows.  The card's cuDNN and
+# the CPU's oneDNN sum the f32 convolutions in other orders, so every delta
+# differs in its last bits (PARAM_ATOL, as for training).  Quantization turns
+# such a difference into a whole code where a delta element lies at a
+# rounding boundary of x/scale: that element's update then differs by one
+# code step, weight × scale ≤ β/M × the largest row scale (M = 30 admitted
+# rows).  Error feedback carries the flipped code's error into the user's
+# next delta, so a flip does not accumulate; the tolerance allows one step
+# per window.
+def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
+    from repro_torch.serving import PersonalizationServer
+    from repro_torch.tree import tree_leaves
+    clients, params, loss, _ = setup
+    srv = PersonalizationServer(params, loss, pcfg, max_pending=64,
+                                device="cpu", delta_dtype="int8",
+                                modes=("C",))
+    t0 = time.perf_counter()
+    codes = {}
+
+    def first_codes(w, s):
+        if w == 0:
+            codes["cpu"] = [x.clone() for x in tree_leaves(
+                s.ring._banks[0][0].stacked.q)]
+    drive_server(torch, srv, batches, 3, after=first_codes)
+    wall = time.perf_counter() - t0
+    step = pcfg.beta / len(clients) * snap3["max_scale"]
+    tol = PARAM_ATOL + 3 * step
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(snap3["params"], tree_leaves(srv.params)))
+    flipped = sum(int((a != b).sum()) for a, b in
+                  zip(snap3["codes"], codes["cpu"]))
+    total = sum(a.numel() for a in snap3["codes"])
+    print(f"serving parity (int8) 3 windows card vs CPU: max |param diff| "
+          f"{diff:.3e} (tol {tol:.3e} = {PARAM_ATOL} + 3 x code step "
+          f"{step:.3e}); window 0 codes differing {flipped} of {total}; "
+          f"CPU wall {wall:.3f} s", flush=True)
+    check(diff <= tol, f"serving parity: params differ by {diff} > {tol}")
+
+
 def main() -> int:
     try:
         import torch
@@ -443,8 +702,9 @@ def main() -> int:
               flush=True)
 
         launches, hists = main_path(torch, setup)
-        profile_phase(torch, setup)
+        profile_training(torch, setup)
         cpu_parity(torch, setup, hists)
+        serve_launches, _ = serving_phase(torch, setup)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -454,12 +714,17 @@ def main() -> int:
         main = rows[0]          # the main path's shape comes first
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            # apply_rows_q runs on the serving path (e) only; the others'
+            # counts are those of training runs (a)-(d)
+            "launches": launches.get(name, serve_launches.get(name)),
+            "launches_serving": serve_launches.get(name, 0),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"], "shapes": rows})
     kernels[0]["immediate_apply_ms"] = imm_ms
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,9 @@
 The event timeline is numpy and Python (the heap of ``(t, client, kind)``
 events, ``FLRun.rng`` batch draws), so it is the reference's to the bit.
 
-Still to port (ROADMAP Queue 1): the ``fedprox``, ``scaffold`` and
-``personalize`` strategies, the robust flush (``buffered(robust=...)``), the
-device scheduler (``scheduler="device"``) and the scenario engine's
-``ChurnModel`` corruption.
+Still to port (ROADMAP Queue 1): the ``fedprox`` and ``scaffold``
+strategies, the device scheduler (``scheduler="device"``) and the scenario
+engine's ``ChurnModel`` corruption.
 """
 from __future__ import annotations
 
@@ -28,17 +27,21 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from torch.func import grad
+
 from repro_torch.core import (PersAFLConfig, admission_weights,
                               apply_buffered_rows, apply_update,
-                              client_update, init_server_state,
+                              client_update, init_server_state, mask_rows,
+                              robust_flush_weights, solve_prox,
                               split_batches_for_option)
 from repro_torch.core.server import staleness_stats
+from repro_torch.core.subset import SubsetSpec, merge_subset
 from repro_torch.data.federated import sample_batches
 from repro_torch.device import resolve_device
 from repro_torch.fl.engine import CohortEngine, DeltaBank
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_NOT_PORTED = {"fedprox": "fl/algorithms.py", "scaffold": "fl/algorithms.py",
-               "personalize": "the serving slice"}
+_NOT_PORTED = {"fedprox": "fl/algorithms.py", "scaffold": "fl/algorithms.py"}
 
 
 @dataclasses.dataclass
@@ -169,6 +172,60 @@ for _nm, _opt in (("fedavg", "A"), ("fedasync", "A"),
     _REGISTRY[_nm] = functools.partial(PersAFLStrategy, option=_opt)
 
 
+@register_strategy("personalize")
+class PersonalizeStrategy(Strategy):
+    """Serving-side personalization delta (head = w − delta).
+
+    mode "B": delta = α ∇f(w; D)   (head = the one-step MAML fine-tune)
+    mode "C": delta = w − θ̃(w)     (head = the Moreau prox solution θ̃)
+
+    ``batches`` is the user's raw request batch (no leading-Q axis).  The
+    delta is f32, so bank rows go straight to the stacked server apply;
+    this is the rule behind
+    :class:`repro_torch.serving.PersonalizationServer`.  With
+    ``personal_subset`` set, the gradient or prox solve runs over the
+    subset leaves against a frozen backbone and the delta comes back in the
+    pruned subset structure.
+    """
+
+    name = "personalize"
+
+    def __init__(self, mode: str = "C", personal_subset=None):
+        if mode not in ("B", "C"):
+            raise ValueError(f"unknown personalization mode {mode!r}; "
+                             f"have ('B', 'C')")
+        self.mode = mode
+        self.option = mode
+        self.personal_subset = SubsetSpec.resolve(personal_subset)
+
+    def local_update(self, params, batch, cstate):
+        spec = self.personal_subset
+        if spec is None:
+            sub0, loss_fn = params, self.loss_fn
+        else:
+            # torch.func differentiates lists of tensors, not the pruned
+            # tree's None slots: the subset travels as its list of leaves
+            # and the closure rebuilds it and merges it over the backbone
+            template = spec.extract(params)
+            sub0 = tree_leaves(template)
+
+            def loss_fn(leaves, b):
+                return self.loss_fn(
+                    merge_subset(params, tree_unflatten(template, leaves)),
+                    b)
+        if self.mode == "B":
+            g = grad(loss_fn)(sub0, batch)
+            delta = tree_map(lambda gg: self.pcfg.alpha * gg.float(), g)
+        else:
+            theta, _ = solve_prox(loss_fn, sub0, batch, self.pcfg.lam,
+                                  self.pcfg.inner_eta, self.pcfg.inner_steps)
+            delta = tree_map(lambda w, t: w.float() - t.float(), sub0,
+                             theta)
+        if spec is not None:
+            delta = tree_unflatten(template, delta)
+        return delta, None, {}
+
+
 # ---------------------------------------------------------------------------
 # Apply policies (server schedules)
 # ---------------------------------------------------------------------------
@@ -219,16 +276,23 @@ class Buffered(ApplyPolicy):
     are rows of one ``[bucket]`` array).  t advances in M-sized jumps;
     staleness Σ/max are accounted per contributing delta.
 
-    ``robust="clip"`` / ``"trim"`` waits for the port of the robust half of
-    ``core/server.py`` and raises."""
+    ``robust="clip"`` / ``"trim"`` routes the flush through
+    :func:`repro_torch.core.robust_flush_weights`: per-row norm clipping
+    or a norm-based trimmed mean calibrated over the whole buffer, across
+    the banks its rows live in (row norms reduced on the device,
+    non-finite rows zeroed through :func:`repro_torch.core.mask_rows`).
+    Under trim, t still advances by the full buffer size."""
 
     def __init__(self, m: Optional[int] = None, *,
-                 robust: Optional[str] = None):
-        if robust is not None:
-            raise NotImplementedError(
-                f"buffered(robust={robust!r}) needs the robust half of "
-                f"core/server.py, which is not ported yet (ROADMAP.md "
-                f"Queue 1)")
+                 robust: Optional[str] = None,
+                 clip_norm: Optional[float] = None,
+                 trim_frac: float = 0.1):
+        if robust not in (None, "clip", "trim"):
+            raise ValueError(f"robust must be None, 'clip' or 'trim', "
+                             f"got {robust!r}")
+        self.robust = robust
+        self.clip_norm = clip_norm
+        self.trim_frac = trim_frac
         self.m = m                # configured; None = the run's pcfg M
 
     def start(self, run):
@@ -254,15 +318,34 @@ class Buffered(ApplyPolicy):
             bank, idx = run._computed.pop(r)
             groups.setdefault(id(bank), (bank, []))[1].append((idx, s))
         t_old = run._t
-        for bank, rows in groups.values():
-            weights = admission_weights(bank.capacity, rows,
-                                        beta=run.pcfg.beta, count=m,
-                                        damping=damping)
+        robust_info = {"clipped": 0, "trimmed": 0, "nonfinite": 0}
+        if self.robust is not None:
+            # one call for the whole flush: the defense calibrates over
+            # all m admissions, not per owning bank
+            per_bank, robust_info = robust_flush_weights(
+                groups, beta=run.pcfg.beta, count=m, damping=damping,
+                method=self.robust, clip_norm=self.clip_norm,
+                trim_frac=self.trim_frac)
+        for key, (bank, rows) in groups.items():
+            if self.robust is not None:
+                weights, keep = per_bank[key]
+                # non-finite rows are masked out of the stack, not just
+                # zero-weighted: 0 × NaN = NaN
+                stack = bank.stacked if bool(keep.all()) \
+                    else mask_rows(bank.stacked, keep)
+            else:
+                weights = admission_weights(bank.capacity, rows,
+                                            beta=run.pcfg.beta, count=m,
+                                            damping=damping)
+                stack = bank.stacked
             run.state = apply_buffered_rows(
-                run.state, bank.stacked, weights, len(rows),
+                run.state, stack, weights, len(rows),
                 staleness_max=max(s for _, s in rows),
                 staleness_sum=float(sum(s for _, s in rows)))
-        run._record_window(now, m, [s for _, s in self._buffer])
+        run._record_window(now, m, [s for _, s in self._buffer],
+                           robust_clipped=robust_info["clipped"],
+                           robust_trimmed=robust_info["trimmed"],
+                           robust_nonfinite=robust_info["nonfinite"])
         self._buffer = []
         run._t = t_old + m
         # t jumps by M per flush: eval whenever a multiple of eval_every
@@ -288,10 +371,14 @@ def immediate() -> Immediate:
     return Immediate()
 
 
-def buffered(m: Optional[int] = None, *,
-             robust: Optional[str] = None) -> Buffered:
-    """``m=None`` takes ``pcfg.buffer_size`` at run time."""
-    return Buffered(m, robust=robust)
+def buffered(m: Optional[int] = None, *, robust: Optional[str] = None,
+             clip_norm: Optional[float] = None,
+             trim_frac: float = 0.1) -> Buffered:
+    """``m=None`` takes ``pcfg.buffer_size`` at run time.  ``robust=``
+    selects the Byzantine-robust flush ("clip" / "trim"; see
+    :class:`Buffered`)."""
+    return Buffered(m, robust=robust, clip_norm=clip_norm,
+                    trim_frac=trim_frac)
 
 
 def sync_barrier(m: int = 10) -> SyncBarrier:
@@ -367,7 +454,8 @@ class FLRun:
         self.final_stats: Optional[Dict] = None
         self.scheduler_stats: Dict = {
             "scheduler": self.scheduler, "windows": 0, "cohort_fill_sum": 0,
-            "cohort_fill_max": 0, "dropouts": 0}
+            "cohort_fill_max": 0, "dropouts": 0, "robust_clipped": 0,
+            "robust_trimmed": 0, "robust_nonfinite": 0}
         self.window_log: List[Dict] = []
         self._window_log_cap = 1024
 
@@ -392,21 +480,24 @@ class FLRun:
             / max(self.scheduler_stats["windows"], 1))
         return s
 
-    def _record_window(self, now: float, fill: int, taus: List[int]) -> None:
-        """Per-server-apply bookkeeping: cohort fill and staleness spread;
-        the first ``_window_log_cap`` windows also get a record in
-        ``window_log``."""
+    def _record_window(self, now: float, fill: int, taus: List[int],
+                       **extra: int) -> None:
+        """Per-server-apply bookkeeping: cohort fill, staleness spread and
+        robust-admission actions; the first ``_window_log_cap`` windows
+        also get a record in ``window_log``."""
         st = self.scheduler_stats
         st["windows"] += 1
         st["cohort_fill_sum"] += fill
         st["cohort_fill_max"] = max(st["cohort_fill_max"], fill)
+        for key, val in extra.items():
+            st[key] = st.get(key, 0) + val
         if len(self.window_log) < self._window_log_cap:
             self.window_log.append({
                 "window": st["windows"], "time": float(now),
                 "fill": int(fill),
                 "tau_mean": float(np.mean(taus)) if taus else 0.0,
                 "tau_max": int(max(taus)) if taus else 0,
-                "dropouts": st["dropouts"]})
+                "dropouts": st["dropouts"], **extra})
 
     def _flush(self) -> None:
         """Materialize every pending client update in one cohort call.

@@ -22,9 +22,15 @@ DeltaBank contract:
     ``stats["host_materializations"]``) and every row after that is a host
     view.
 
+A strategy with ``personal_subset`` set returns deltas in the pruned subset
+structure (:mod:`repro_torch.core.subset`), and the bank's stacked buffer
+carries only the personal leaves.  Every bank goes through the callbacks
+registered with :meth:`CohortEngine.add_bank_hook` before ``update_cohort``
+returns it: the serving ring retains banks across windows that way.
+
 The per-event sequential path is kept behind ``vectorized=False``.  The
-reference's ``"shard_map"`` cohort, stateful strategies (SCAFFOLD's stacked
-client state) and the serving bank hooks come with later slices.
+reference's ``"shard_map"`` cohort and stateful strategies (SCAFFOLD's
+stacked client state) come with later slices.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from repro_torch.convert import to_tensor
 from repro_torch.core import client_update, split_batches_for_option
 from repro_torch.core.types import PersAFLConfig
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _stack(trees: List):
@@ -151,6 +157,34 @@ class CohortEngine:
                 delta, _ = client_update(pcfg, loss_fn, params, batches)
                 return delta
         self._one = _one
+        # window-boundary hooks: every bank this engine produces is handed
+        # to each callback before update_cohort returns it
+        self._bank_hooks: List[Callable[[DeltaBank], None]] = []
+
+    def add_bank_hook(self, fn: Callable[["DeltaBank"], None]) -> None:
+        """Register a bank-handoff callback (the serving ring's retention).
+        Called once per ``update_cohort`` with the new bank."""
+        self._bank_hooks.append(fn)
+
+    def _emit(self, bank: DeltaBank) -> DeltaBank:
+        for hook in self._bank_hooks:
+            hook(bank)
+        return bank
+
+    def _vmap(self, params, stacked):
+        """The cohort through ``torch.func.vmap``.  vmap returns tensors
+        only, so the rule's delta goes out as its list of leaves and comes
+        back in its own structure (a pruned subset tree holds ``None``)."""
+        template = []
+
+        def flat_one(b):
+            delta = self._one(params, b)
+            template.append(tree_map(lambda _: 0, delta))
+            return tree_leaves(delta)
+        leaves = vmap(flat_one)(stacked)
+        # vmap may hand the cohort axis back as a strided view; the apply
+        # kernels take contiguous rows
+        return tree_unflatten(template[0], [x.contiguous() for x in leaves])
 
     def _bucket(self, k: int) -> int:
         """Pow2 bucket of a k-client cohort."""
@@ -182,22 +216,20 @@ class CohortEngine:
         """
         k = len(batch_list)
         if k == 0:
-            return DeltaBank(rows=[], stats=self.stats)
+            return self._emit(DeltaBank(rows=[], stats=self.stats))
         if not self.vectorized:
             self.stats["cohort_calls"] += 1
             self.stats["clients"] += k
             self.stats["max_cohort"] = max(self.stats["max_cohort"], k)
-            return DeltaBank(rows=[self._one(params, self._to_device(b))
-                                   for b in batch_list], stats=self.stats)
+            return self._emit(DeltaBank(
+                rows=[self._one(params, self._to_device(b))
+                      for b in batch_list], stats=self.stats))
         stacked, k = self._pad_stack(batch_list)
         if self.cohort_impl == "vmap":
-            # vmap may hand the cohort axis back as a strided view; the
-            # apply kernels take contiguous rows
-            deltas = tree_map(lambda x: x.contiguous(),
-                              vmap(lambda b: self._one(params, b))(stacked))
+            deltas = self._vmap(params, stacked)
         else:
             bucket = tree_leaves(stacked)[0].shape[0]
             deltas = _stack([self._one(params,
                                        tree_map(lambda x: x[r], stacked))
                              for r in range(bucket)])
-        return DeltaBank(stacked=deltas, k=k, stats=self.stats)
+        return self._emit(DeltaBank(stacked=deltas, k=k, stats=self.stats))

@@ -5,16 +5,24 @@
     Every immediate apply runs it once per param leaf.
   * :func:`apply_rows` -- ``w ← w − Σᵢ sᵢ·Δᵢ`` over an ``[M, *w.shape]``
     stack; replaces ``kernel.py:129`` (``apply_rows``).  Every buffered and
-    every sync flush runs it once per leaf.
+    every sync flush runs it once per leaf, and so does every window apply
+    of a server that banks deltas in fp32.
+  * :func:`apply_rows_q` -- ``w ← w − Σᵢ (sᵢ·scaleᵢ)·qᵢ`` over an int8
+    ``[M, *w.shape]`` stack with f32 row scales; replaces ``kernel.py:186``
+    (``apply_rows_q``).  Every window apply of a server that banks deltas in
+    int8 runs it once per leaf and contributing bank.
 
-Both are CUDA C++ for ``sm_90a`` in ``repro_torch/csrc/fused_update.cu``,
+All three are CUDA C++ for ``sm_90a`` in ``repro_torch/csrc/fused_update.cu``,
 built by :mod:`repro_torch.kernels._build` at first use.  Both are
 memory-bound: their bound on the card is the bytes they move (``2n`` reads and
-``n`` writes, or ``(M+1)·n`` reads and ``n`` writes, times the element size)
-over 3.35 TB/s; the source notes say what the design does about it.
+``n`` writes, or ``(M+1)·n`` reads and ``n`` writes, times the element size;
+for ``apply_rows_q`` ``M·n`` int8 bytes, ``w`` read and written, and ``8M``
+bytes of weights and scales) over 3.35 TB/s; the source notes say what the
+design does about it.
 
 Each wrapper checks its inputs and raises on anything the kernel does not
-take: a tensor off the card, a dtype other than f32/bf16, a mismatched shape,
+take: a tensor off the card, a dtype other than f32/bf16 (int8 for the
+quantized stack, f32 for weights and scales), a mismatched shape,
 a non-contiguous layout.  It allocates the output with ``torch.empty`` (the
 apply is out of place), launches on PyTorch's current stream, raises if the
 launch reports a CUDA error, and counts the launch in :data:`LAUNCHES`.
@@ -32,7 +40,7 @@ from repro_torch.kernels import _build
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched
-LAUNCHES = {"apply_scaled": 0, "apply_rows": 0}
+LAUNCHES = {"apply_scaled": 0, "apply_rows": 0, "apply_rows_q": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +58,8 @@ def _lib() -> ctypes.CDLL:
     lib.fu_apply_scaled.restype = i32
     lib.fu_apply_rows.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
     lib.fu_apply_rows.restype = i32
+    lib.fu_apply_rows_q.argtypes = [p, p, p, p, p, i64, i64, i32, p]
+    lib.fu_apply_rows_q.restype = i32
     lib.fu_error_string.argtypes = [i32]
     lib.fu_error_string.restype = ctypes.c_char_p
     return lib
@@ -138,6 +148,42 @@ def apply_rows(w: torch.Tensor, d_stack: torch.Tensor,
         err = _lib().fu_apply_rows(
             out.data_ptr(), w.data_ptr(), d_stack.data_ptr(),
             weights.data_ptr(), m, n, wc, dc,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def apply_rows_q(w: torch.Tensor, q_stack: torch.Tensor,
+                 scales: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``w − Σᵢ (weights[i]·scales[i])·float(q_stack[i])`` in f32, stored in
+    ``w.dtype``; one kernel launch.  ``q_stack`` is int8 ``[M, *w.shape]``;
+    ``scales`` and ``weights`` are ``[M]`` float32, all on ``w``'s card."""
+    name = "apply_rows_q"
+    _check(name, "w", w)
+    _check(name, "q_stack", q_stack, w.device)
+    _check(name, "scales", scales, w.device)
+    _check(name, "weights", weights, w.device)
+    m = q_stack.shape[0] if q_stack.dim() else -1
+    if q_stack.shape[1:] != w.shape or q_stack.dim() != w.dim() + 1:
+        raise ValueError(f"{name}: q_stack has shape {tuple(q_stack.shape)}, "
+                         f"expected [M, *{tuple(w.shape)}]")
+    if q_stack.dtype != torch.int8:
+        raise TypeError(f"{name}: q_stack has dtype {q_stack.dtype}; the "
+                        f"kernel takes int8 codes")
+    for arg, t in (("scales", scales), ("weights", weights)):
+        if t.dtype != torch.float32 or t.shape != (m,):
+            raise ValueError(f"{name}: {arg} must be float32 of shape "
+                             f"({m},), got {t.dtype} {tuple(t.shape)}")
+    wc = _code(name, "w", w)
+    out = torch.empty_like(w)
+    n = w.numel()
+    if n == 0:
+        return out
+    with torch.cuda.device(w.device):
+        err = _lib().fu_apply_rows_q(
+            out.data_ptr(), w.data_ptr(), q_stack.data_ptr(),
+            weights.data_ptr(), scales.data_ptr(), m, n, wc,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1

@@ -50,3 +50,21 @@ def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,
     return tree_map(
         lambda w, d: _pick(K.apply_rows, R.apply_rows_ref, mode, w)(
             w, d, weights), w_tree, stack_tree)
+
+
+def apply_rows_q_tree(w_tree, q_tree, scales_tree, weights: torch.Tensor,
+                      mode: str = "auto", order=None):
+    """Quantized stacked apply w ← w − Σᵢ weights[i]·scales[i]·qᵢ per leaf,
+    one pass each, over the components of a :class:`QuantStack`: ``q_tree``
+    (int8 leaves ``[M, ...]``) and ``scales_tree`` (f32 leaves ``[M]``).  No
+    f32 copy of the bank is made.
+
+    ``order`` (the serving window's admission order) is accepted and
+    ignored: on one device every leaf reduces its rows in one pass, and the
+    reference reads ``order`` only when the stack spans several devices
+    (``src/repro/kernels/fused_update/ops.py:150-158``), which comes with
+    the port's multi-device slice."""
+    del order
+    return tree_map(
+        lambda w, q, sc: _pick(K.apply_rows_q, R.apply_rows_q_ref, mode, w)(
+            w, q, sc, weights), w_tree, q_tree, scales_tree)

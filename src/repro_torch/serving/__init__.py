@@ -1,0 +1,36 @@
+"""Live-traffic serving of personalized heads, as in ``src/repro/serving``.
+
+Batcher **modes** are the paper's personalization options:
+
+  * mode ``"B"`` -- Option B / Per-FedAvg: one-step MAML fine-tune,
+    ``head_i = w − α ∇f_i(w; D_i)``;
+  * mode ``"C"`` -- Option C / pFedMe: Moreau-envelope prox solve,
+    ``head_i = θ̃_i(w) ≈ argmin_θ f_i(θ) + λ/2‖θ − w‖²`` by K inner steps.
+
+Both compose with ``personal_subset`` (only a subset of the params is
+personalized and banked) and with ``delta_dtype="int8"`` (quantized
+banking with per-user error feedback, window applies through the
+``apply_rows_q`` kernel).
+
+Parts: :mod:`repro_torch.serving.batcher` (request queue, micro-batcher),
+:mod:`repro_torch.serving.bank` (:class:`DeltaRing`, the ring of retained
+banks and snapshots), :mod:`repro_torch.serving.server`
+(:class:`PersonalizationServer`).  The reference's socket front-end,
+``serving/transport.py``, is not ported yet: its names raise
+``NotImplementedError``.
+"""
+from repro_torch.serving.bank import DeltaRing  # noqa: F401
+from repro_torch.serving.batcher import (MODES, MicroBatcher,  # noqa: F401
+                                         Ticket, personalize_strategy)
+from repro_torch.serving.server import PersonalizationServer  # noqa: F401
+
+_TRANSPORT = ("AsyncTransportClient", "TransportBusy", "TransportClient",
+              "TransportError", "TransportServer")
+
+
+def __getattr__(name: str):
+    if name in _TRANSPORT:
+        raise NotImplementedError(
+            f"repro_torch.serving.{name} is not ported yet: it comes with "
+            f"the port of serving/transport.py (ROADMAP.md Queue 1)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -142,8 +142,8 @@ def test_flrun_refuses_what_is_not_ported(kw, err):
         FLRun(clients=clients, loss_fn=lambda p, b: 0.0,
               init_params={"w": np.zeros(3, np.float32)},
               pcfg=PersAFLConfig(), delays=DelayModel(2), device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        buffered(4, robust="clip")
+    with pytest.raises(ValueError, match="robust"):
+        buffered(4, robust="median")
     assert {"persafl", "fedasync", "perfedavg", "pfedme"} <= set(
         strategy_names())
 
@@ -173,8 +173,69 @@ def test_run_budget_stop_and_final_eval():
     hist = make().run(max_rounds=50, eval_every=2, eval_fn=ev,
                       on_eval=lambda h: "stop")
     assert hist.rounds == [2] and len(hist.staleness) == 2
-    with pytest.raises(NotImplementedError, match="subset"):
-        make_personalized_eval(loss, acc, clients, personal_subset=("fc",))
+    with pytest.raises(ValueError, match="matches no param leaf"):
+        make_personalized_eval(loss, acc, clients,
+                               personal_subset=("head",))(params)
+
+
+@pytest.mark.parametrize("robust", ["clip", "trim"])
+def test_buffered_robust_matches_reference(robust):
+    """``buffered(4, robust=...)``: the flush weights come from
+    ``robust_flush_weights`` over the whole buffer; params and the robust
+    counters must match the reference.  Honest deltas stay under clip's
+    2 × median bound, so clip gets an explicit bound below every norm
+    (about 0.02 here), far from a tie."""
+    kw = dict(clip_norm=1e-3) if robust == "clip" else {}
+    _, params, _, _ = _reference()
+    jclients, jloss = _reference()[0], _reference()[2]
+    run_j = JFLRun(clients=jclients, loss_fn=jloss, init_params=params,
+                   pcfg=JConfig(option="A", **PCFG),
+                   delays=JDelayModel(N_CLIENTS, seed=0),
+                   schedule=j_buffered(4, robust=robust, **kw), batch_size=8,
+                   seed=0)
+    run_j.run(max_rounds=ROUNDS)
+    clients = make_federated_dataset("mnist", n_clients=N_CLIENTS,
+                                     classes_per_client=3, seed=0)
+    loss = lambda p, b: tcnn.cnn_loss(MNIST_CNN, p, b, train=False)  # noqa
+    run = FLRun(clients=clients, loss_fn=loss,
+                init_params=jax.tree.map(np.asarray, params),
+                pcfg=PersAFLConfig(option="A", **PCFG),
+                delays=DelayModel(N_CLIENTS, seed=0),
+                schedule=buffered(4, robust=robust, **kw), batch_size=8,
+                seed=0,
+                device="cpu")
+    run.run(max_rounds=ROUNDS)
+    for a, b in zip(jax.tree.leaves(run_j.params), tree_leaves(run.params)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=PARAM_ATOL,
+                                   rtol=0)
+    for key in ("windows", "robust_clipped", "robust_trimmed",
+                "robust_nonfinite"):
+        assert run.stats[key] == run_j.stats[key], key
+    assert run.stats["robust_" + ("clipped" if robust == "clip"
+                                  else "trimmed")] > 0
+
+
+def test_personal_subset_eval_matches_reference():
+    """``make_personalized_eval(personal_subset=...)`` fine-tunes only the
+    subset; the score must match the reference's, and differ from the
+    full fine-tune's."""
+    clients, params, jloss, _ = _reference()
+    jacc = lambda p, b: jcnn.cnn_accuracy(J_MNIST, p, b)  # noqa: E731
+    tclients = make_federated_dataset("mnist", n_clients=N_CLIENTS,
+                                      classes_per_client=3, seed=0)
+    loss = lambda p, b: tcnn.cnn_loss(MNIST_CNN, p, b, train=False)  # noqa
+    acc = lambda p, b: tcnn.cnn_accuracy(MNIST_CNN, p, b)  # noqa: E731
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+    kw = dict(ft_steps=2, ft_lr=0.5, with_loss=True)
+    for subset in ("fc/#1", ("conv/#0", "fc/#1/b")):
+        want = j_make_eval(jloss, jacc, clients, personal_subset=subset,
+                           **kw)(params)
+        got = make_personalized_eval(loss, acc, tclients,
+                                     personal_subset=subset, **kw)(tparams)
+        assert abs(got["acc"] - want["acc"]) <= ACC_ATOL
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    full = make_personalized_eval(loss, acc, tclients, **kw)(tparams)
+    assert full["loss"] != got["loss"]
 
 
 def _drift(rounds: int = 75, every: int = 15) -> None:

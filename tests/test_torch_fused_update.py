@@ -152,7 +152,8 @@ def test_tree_fronts_auto_on_cpu_take_the_plain_version():
     out = ops.apply_rows_tree(w, stack, torch.tensor([0.25, 0.5]))
     np.testing.assert_allclose(out["b"][0].numpy(), (w["b"][0] - 0.75).numpy(),
                                **F32_TOL)
-    assert K.LAUNCHES == {"apply_scaled": 0, "apply_rows": 0}
+    assert K.LAUNCHES == {"apply_scaled": 0, "apply_rows": 0,
+                          "apply_rows_q": 0}
 
 
 @pytest.mark.parametrize("mode", ["kernel", "seq", "bogus"])

@@ -40,5 +40,8 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert out["loaded"] == []          # no kernel is built at import
     for name in ("repro_torch.fl.api", "repro_torch.fl.engine",
                  "repro_torch.kernels.fused_update.kernel",
-                 "repro_torch.core.server", "repro_torch.convert"):
+                 "repro_torch.core.server", "repro_torch.convert",
+                 "repro_torch.serving", "repro_torch.serving.server",
+                 "repro_torch.checkpoint", "repro_torch.core.quant",
+                 "repro_torch.core.subset"):
         assert name in out["modules"]

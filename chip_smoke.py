@@ -6,16 +6,25 @@ GPU.  Run from the root of a checkout, with no arguments::
 
 Phases; any failure exits non-zero and prints no result line:
 
-  1. build   -- ``nvcc`` builds the kernel library from
-     ``src/repro_torch/csrc/fused_update.cu``.
+  1. build   -- one ``nvcc`` per kernel library, started together:
+     ``src/repro_torch/csrc/fused_update.cu`` and
+     ``src/repro_torch/csrc/ssd.cu``.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs, within TOLS: at the main path's shapes (the
      8 leaves of the paper's MNIST CNN) and at bank-sized shapes, f32, bf16
-     and f32 params with bf16 deltas.  Each case also shows that a no-op
-     and a sign-flipped result fail the same check.  Times are medians of
-     CUDA-event timings; ``bound_ms`` is the bytes the function must move
-     over the H100 SXM's 3.35 TB/s; ``library_ms`` times one PyTorch call
-     that computes the same function (a yardstick the port never calls).
+     and f32 params with bf16 deltas, and at mamba2-130m's 12 leaves (M = 4,
+     the window apply of (f)).  ``ssd_fwd`` against ``ssd_ref`` within
+     SSD_TOL at SSD_CASES (the (f) cohort, (8, 4096) and (1, 32768)), f32
+     and bf16 inputs, with a shared a_log, and at SSD_ROW_CASES with a
+     per-row (B, H) a_log, the layout (f)'s cohort hands the kernel; chunk
+     32/64/128 within SSD_CHUNK_TOL.  Each case also shows that a no-op (a
+     zero output for the scan) and a sign-flipped result fail the same
+     check, and each per-row case that row 0's a_log for every row does.  Times are medians of
+     CUDA-event timings; ``bound_ms`` is the larger of the bytes the
+     function must move over the H100 SXM's 3.35 TB/s and its FLOPs over the
+     f32 peak (67 TFLOP/s, for ``ssd_fwd``); ``library_ms`` times one PyTorch
+     call that computes the same function (a yardstick the port never
+     calls; none exists for the scan).
   3. main path -- PersA-FL asynchronous training of the paper CNN on
      label-skewed synthetic MNIST (the fig2 setup of
      ``benchmarks/common.py``: 30 clients, 5 classes each, batch 16, Q = 10,
@@ -40,12 +49,28 @@ Phases; any failure exits non-zero and prints no result line:
      contributing bank, and the first 3 int8 windows on the CPU within the
      tolerance stated at ``serving_cpu_parity``.
 
+  6. mamba2-130m -- (f) ``repro_torch.launch.serve.main`` at full width
+     (167,598,528 params), 4 users, mode C (λ = 30, α = 0.01, K = 5,
+     η_in = 0.01), fp32 and int8 banking, 16 decoded tokens, then one
+     ``advance_window()``; counts zeroed just before each run.  Checks: no
+     host materialization, ``ssd_fwd`` launched 24 times per forward
+     evaluation of the LM loss (6 per cohort call, whatever the cohort size,
+     and 2 loss checks), every user's personalized loss below the global
+     loss on their own stream, the window apply one launch per leaf.
+     (g) ``make_prefill_step`` at PREFILL_SHAPES, bf16 activations: wall per
+     call, 24 launches per call, and one call under ``torch.profiler``
+     (device time in ``ssd_fwd`` against the GEMMs, device busy share).
+     (h) the same weights at 2 layers, f32, card against CPU:
+     ``prefill_logits`` within LM_PREFILL_TOL and the heads of one mode-C
+     flush of 2 users within LM_HEAD_TOL.
+
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -57,10 +82,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-SOURCE = "src/repro_torch/csrc/fused_update.cu"
+KERNEL_LIBS = ("fused_update", "ssd")
+SOURCES = {"apply_scaled": "src/repro_torch/csrc/fused_update.cu",
+           "apply_rows": "src/repro_torch/csrc/fused_update.cu",
+           "apply_rows_q": "src/repro_torch/csrc/fused_update.cu",
+           "ssd_fwd": "src/repro_torch/csrc/ssd.cu"}
 REPLACES = {"apply_scaled": "src/repro/kernels/fused_update/kernel.py:229",
             "apply_rows": "src/repro/kernels/fused_update/kernel.py:129",
-            "apply_rows_q": "src/repro/kernels/fused_update/kernel.py:186"}
+            "apply_rows_q": "src/repro/kernels/fused_update/kernel.py:186",
+            "ssd_fwd": "src/repro/kernels/ssd/kernel.py:73"}
 # CPU-vs-card agreement of the 8-round runs.  The card's cuDNN and the CPU's
 # oneDNN sum the f32 convolutions in different orders, so every gradient
 # differs in its last bits; Option C then forms λ(w − θ̃) from two nearly
@@ -137,11 +167,12 @@ def card_line() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, launches: int = 20, repeats: int = 5) -> float:
+def time_ms(torch, fn, launches: int = 20, repeats: int = 5,
+            warmup: int = 3) -> float:
     """Time of one call of ``fn``: CUDA events around ``launches`` calls in
     a row, over the count, median of ``repeats`` such runs.  Where a call's
     host work outlasts its kernel, this is the host's time per call."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -157,7 +188,7 @@ def time_ms(torch, fn, launches: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(torch, cnn_shapes):
+def kernel_phase(torch, cnn_shapes, lm_shapes=()):
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ref as R
 
@@ -310,8 +341,154 @@ def kernel_phase(torch, cnn_shapes):
         qs, extra = q_inputs(m, [(n,)])
         run_case("apply_rows_q", f"M={m} n={n} {dw}", [w], qs, extra)
         del w, qs
+    if lm_shapes:
+        # the window apply of phase (f): mamba2-130m's 12 leaves at M = 4
+        # (4 users, one pow2 bucket), one launch per leaf
+        ws = [randn(*sh, scale=0.5) for sh in lm_shapes]
+        stacks = [randn(4, *sh) for sh in lm_shapes]
+        run_case("apply_rows", "mamba2-130m 12 leaves M=4 f32", ws, stacks,
+                 row_weights(4))
+        del stacks
+        qs, extra = q_inputs(4, lm_shapes)
+        run_case("apply_rows_q", "mamba2-130m 12 leaves M=4 w f32", ws, qs,
+                 extra)
+        del ws, qs
     torch.cuda.empty_cache()
     return results
+
+
+# ssd_fwd against ssd_ref on the card, as the reference's own
+# test_ssd_kernel_matches_sequential_ref: the kernel sums the chunk products
+# in another order than the sequential recurrence
+SSD_TOL = dict(atol=5e-4, rtol=5e-4)
+# chunk invariance of the kernel (1e-4, as the reference's
+# test_ssd_chunk_invariance)
+SSD_CHUNK_TOL = dict(atol=1e-4, rtol=1e-4)
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# (B, S) at mamba2-130m's H 24, P 64, G 1, N 128, chunk 128: the
+# personalization cohort folded into the batch (4 users x 128 tokens), the
+# prefill of phase (g) at (8, 4096), and prefill_32k's length at batch 1
+SSD_CASES = ((4, 128), (8, 4096), (1, 32768))
+# per-row a_log (rows, H), (B, S, input dtype): what the vmap rule of
+# models/mamba2.py hands the kernel once every user of a cohort carries their
+# own params, as in (f) from the first prox step on; at the (f) cohort shape
+# and at one long shape
+SSD_ROW_CASES = ((4, 128, "f32"), (4, 128, "bf16"), (8, 4096, "bf16"))
+SSD_DIMS = dict(H=24, P=64, G=1, N=128, chunk=128)
+SSD_MAIN_SHAPE = "B=4 S=128 bf16 a_log (B,H)"
+
+
+def ssd_inputs(torch, g, B, S, dtype, per_row=False):
+    """Inputs at SSD_DIMS on the card, scaled so that |y| is of order 1: dt
+    as the model's softplus, a_log as mamba2's init (A from -1 to -16), B
+    and C with C.B of order 1.  ``per_row`` gives a_log as (B, H), row b
+    the init rolled by 5b heads, so that no two rows agree."""
+    H, P, G, N = (SSD_DIMS[k] for k in "HPGN")
+    dev = "cuda"
+    x = torch.randn(B, S, H, P, device=dev, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, device=dev, generator=g) - 1.0)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+    if per_row:
+        a_log = torch.stack([a_log.roll(5 * b) for b in range(B)])
+    bm = (torch.randn(B, S, G, N, device=dev, generator=g)
+          / N ** 0.25).to(dtype)
+    cm = (torch.randn(B, S, G, N, device=dev, generator=g)
+          / N ** 0.25).to(dtype)
+    return x, dt, a_log, bm, cm
+
+
+def ssd_cost(B, S, H, P, G, N, chunk, x_bytes, alog_rows=1):
+    """(bytes, FLOPs) the scan must move and do: inputs read once and y (f32)
+    written once; per (chunk, head) 2l^2 N + 2l^2 P + 4lNP FLOPs."""
+    nbytes = (B * S * H * P * (x_bytes + 4) + B * S * H * 4
+              + alog_rows * H * 4 + 2 * B * S * G * N * x_bytes)
+    flops = (S // chunk) * B * H * (2 * chunk ** 2 * N + 2 * chunk ** 2 * P
+                                    + 4 * chunk * N * P)
+    return nbytes, flops
+
+
+def ssd_kernel_phase(torch):
+    """ssd_fwd against ssd_ref on the card at SSD_CASES, f32 and bf16 x/B/C
+    (f32 dt), with a shared (H,) a_log, and at SSD_ROW_CASES with a per-row
+    (B, H) one, within SSD_TOL; a zero and a sign-flipped output must fail
+    the same check, and with per-row a_log so must the output of a kernel
+    that read row 0 for every row; chunk invariance at (1, 1024)."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(B, S, d, False) for B, S in SSD_CASES for d in dtypes]
+    cases += [(B, S, d, True) for B, S, d in SSD_ROW_CASES]
+    rows = []
+    K.reset_launches()
+    for B, S, dname, per_row in cases:
+        ins = ssd_inputs(torch, g, B, S, dtypes[dname], per_row)
+        label = f"B={B} S={S} {dname}" + (" a_log (B,H)" if per_row
+                                           else "")
+        want = ssd_ref(*ins)
+        torch.cuda.empty_cache()
+        poison = torch.full_like(want, float("nan"))
+        del poison
+        got = K.ssd_fwd(*ins, chunk=SSD_DIMS["chunk"])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, **SSD_TOL),
+              f"ssd_fwd {label}: kernel disagrees with ssd_ref (max abs "
+              f"err {err})")
+        zero_ok = torch.allclose(torch.zeros_like(want), want, **SSD_TOL)
+        flip_ok = torch.allclose(-want, want, **SSD_TOL)
+        check(not zero_ok and not flip_ok,
+              f"ssd_fwd {label}: the tolerance cannot tell a zero or a "
+              f"sign-flipped output from ssd_ref")
+        row0_err = None
+        if per_row:
+            # what a kernel that ignored a_log's row stride would give
+            row0 = ssd_ref(ins[0], ins[1], ins[2][0], *ins[3:])
+            row0_err = float((row0 - want).abs().max())
+            check(not torch.allclose(row0, want, **SSD_TOL),
+                  f"ssd_fwd {label}: the tolerance cannot tell row 0's "
+                  f"a_log used for every row from ssd_ref")
+            del row0
+        y_abs = float(want.abs().mean())
+        check(0.05 < y_abs < 20.0, f"ssd_fwd {label}: inputs give mean "
+                                   f"|y| {y_abs}, not of order 1")
+        nbytes, flops = ssd_cost(B, S, x_bytes=ins[0].element_size(),
+                                 alog_rows=B if per_row else 1, **SSD_DIMS)
+        big = B * S >= 32768
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_f = flops / F32_FLOPS_PER_S * 1e3
+        row = {"shape": label, "max_abs_err": err,
+               "zero_err": float(want.abs().max()),
+               "row0_a_log_err": row0_err,
+               "mean_abs_y": y_abs,
+               "ms": time_ms(torch, lambda: K.ssd_fwd(
+                   *ins, chunk=SSD_DIMS["chunk"]),
+                   launches=5 if big else 20),
+               "plain_ms": time_ms(torch, lambda: ssd_ref(*ins),
+                                   launches=1, repeats=1,
+                                   warmup=0 if big else 1),
+               "bound_ms": max(t_b, t_f),
+               "bound_by": "bytes" if t_b > t_f else "operations",
+               "bytes": nbytes, "flops": flops,
+               # no single PyTorch call computes the scan
+               "library_ms": None}
+        row["f32_peak_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"kernel ssd_fwd {label}: {json.dumps(row)}", flush=True)
+        del ins, want, got
+    # chunk invariance: the kernel at chunk 32, 64 and 128 on one input
+    ins = ssd_inputs(torch, g, 1, 1024, torch.float32)
+    outs = {c: K.ssd_fwd(*ins, chunk=c) for c in (32, 64, 128)}
+    inv = max(float((outs[c] - outs[128]).abs().max()) for c in (32, 64))
+    check(all(torch.allclose(outs[c], outs[128], **SSD_CHUNK_TOL)
+              for c in (32, 64)),
+          f"ssd_fwd: chunk 32/64/128 disagree by {inv}")
+    print(f"kernel ssd_fwd chunk invariance (1, 1024) chunk 32/64/128: max "
+          f"abs diff {inv:.3e} (tol {SSD_CHUNK_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def immediate_apply_ms(torch, params_cpu):
@@ -660,6 +837,303 @@ def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
     check(diff <= tol, f"serving parity: params differ by {diff} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# phases (f)-(h): mamba2-130m personalized serving, prefill, card vs CPU
+# ---------------------------------------------------------------------------
+
+MAMBA2_PARAMS = 167_598_528      # 12 leaves, the published width
+# the serve driver's mode C: lambda 30, alpha 0.01, K 5, eta_in 0.01
+LM_USERS, LM_TOKENS, LM_INNER_STEPS, LM_PROMPT = 4, 16, 5, 8
+# prefill shapes of phase (g), (B, S): the kernel cases' long ones
+PREFILL_SHAPES = ((8, 4096), (1, 32768))
+# phase (h): card against CPU at 2 layers, f32, TF32 off.  The card runs the
+# scan through ssd_fwd and the CPU through ssd_chunked (einsums), which sum
+# the chunk products in other orders (ssd_fwd vs ssd_ref differ by up to
+# 4.4e-4 at |y| ~ 25 in phase 2, 1.2e-5 relative), and cuBLAS and the
+# CPU's GEMMs sum the projections and the 768-term unembedding differently:
+# about 1e-5 relative on logits of order 1, hence 1e-4.  Heads are the
+# global params minus 5 prox steps of eta_in = 0.01 on gradients that differ
+# that little: 1e-5.
+LM_PREFILL_TOL = dict(atol=1e-4, rtol=1e-4)
+LM_HEAD_TOL = dict(atol=1e-5, rtol=0.0)
+
+
+def mamba2_leaf_shapes():
+    """mamba2-130m's 12 leaf shapes in tree order, from the config alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as m2
+    cfg = get_config("mamba2-130m")
+    s, d, L, V = cfg.ssm, cfg.d_model, cfg.n_layers, cfg.vocab
+    d_in, nh, conv = m2.dims(cfg)
+    proj = 2 * d_in + 2 * s.n_groups * s.state_dim + nh
+    return [(V, d), (d, V), (d,), (L, d), (L, nh), (L, conv),
+            (L, s.conv_width, conv), (L, nh), (L, nh), (L, d_in),
+            (L, d, proj), (L, d_in, d)]
+
+
+def _stack_batches(torch, batches):
+    return {k: torch.from_numpy(np.stack([b[k] for b in batches])).cuda()
+            for k in batches[0]}
+
+
+def lm_serving_phase(torch):
+    """(f): ``repro_torch.launch.serve.main`` on the card at full width,
+    mamba2-130m, 4 users, mode C, fp32 and int8 banking; then one
+    ``advance_window()`` per server.  Counts are zeroed just before each
+    run.  Returns per-codec numbers and the (int8 run's) config and
+    params."""
+    from torch.func import vmap
+
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.ssd import kernel as KS
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    out, keep = {}, None
+    for codec in ("fp32", "int8"):
+        argv = ["--arch", "mamba2-130m", "--personalize", "--requests",
+                str(LM_USERS), "--tokens", str(LM_TOKENS), "--prompt-len",
+                str(LM_PROMPT), "--inner-steps",
+                str(LM_INNER_STEPS), "--device", "cuda",
+                "--delta-dtype", codec, "--out",
+                str(ROOT / "build" / "serve")]
+        KS.reset_launches()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        run = serve.main(argv)
+        main_wall = time.perf_counter() - t0
+        cfg, srv = run.cfg, run.server
+        leaves = tree_leaves(run.params)
+        n_params = sum(x.numel() for x in leaves)
+        check(n_params == MAMBA2_PARAMS and len(leaves) == 12,
+              f"(f) {codec}: {n_params} params in {len(leaves)} leaves")
+        check([tuple(x.shape) for x in leaves] == mamba2_leaf_shapes(),
+              f"(f) {codec}: leaf shapes differ from the config's")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in tree_leaves(run.heads)),
+              f"(f) {codec}: personalized heads not finite")
+        check(tuple(run.out_tokens.shape) == (LM_USERS, LM_TOKENS),
+              f"(f) {codec}: decoded {tuple(run.out_tokens.shape)}")
+        # every user's head against the global params on their own stream,
+        # one vmapped forward each
+        batch = _stack_batches(torch, run.batches)
+        loss = lambda p, b: api.loss_fn(cfg, p, b)  # noqa: E731
+        with torch.no_grad():
+            head_loss = vmap(loss)(run.heads, batch).cpu()
+            glob_loss = vmap(loss, in_dims=(None, 0))(run.params,
+                                                     batch).cpu()
+        st = srv.stats
+        ssd_launches = KS.LAUNCHES["ssd_fwd"]
+        # K prox steps and nu's gradient per mode-C cohort call, and the two
+        # loss checks above
+        evals = (LM_INNER_STEPS + 1) * st["cohort_calls"] + 2
+        expect = cfg.n_layers * evals
+        # the window apply: one launch per leaf of the one bank
+        kern = "apply_rows_q" if codec == "int8" else "apply_rows"
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.advance_window()
+        torch.cuda.synchronize()
+        apply_wall = time.perf_counter() - t0
+        apply_launches = K.LAUNCHES[kern]
+        row = {
+            "params": n_params, "bytes_per_f32_copy": 4 * n_params,
+            "main_wall_s": main_wall,
+            "personalize_flush_s": run.personalize_s,
+            "decode_s": run.decode_s,
+            "decode_s_per_token": run.decode_s / LM_TOKENS,
+            # the prompt's 7 warm-up steps and the 16 decode steps
+            "decode_s_per_step": run.decode_s / (LM_PROMPT - 1 + LM_TOKENS),
+            "tokens_per_s": run.record["tok_per_s"],
+            "ring_bytes_per_user": st["ring_bytes_per_user"],
+            "host_materializations": st["host_materializations"],
+            "cohort_calls": st["cohort_calls"],
+            "window_apply_s": apply_wall, "window_apply_kernel": kern,
+            "window_apply_launches": apply_launches,
+            "ssd_fwd_launches": ssd_launches, "ssd_fwd_expected": expect,
+            "head_loss": head_loss.tolist(),
+            "global_loss": glob_loss.tolist()}
+        out[codec] = row
+        print(f"(f) mamba2-130m serving {codec}: {json.dumps(row)}",
+              flush=True)
+        check(st["host_materializations"] == 0,
+              f"(f) {codec}: {st['host_materializations']} host "
+              f"materializations")
+        check(ssd_launches == expect,
+              f"(f) {codec}: ssd_fwd launched {ssd_launches} times, expected "
+              f"{cfg.n_layers} x {evals} = {expect}")
+        check(bool((head_loss < glob_loss).all()),
+              f"(f) {codec}: a personalized loss is not below the global "
+              f"loss: {head_loss.tolist()} vs {glob_loss.tolist()}")
+        check(apply_launches == len(leaves),
+              f"(f) {codec}: window apply launched {kern} {apply_launches} "
+              f"times, expected {len(leaves)}")
+        check(finite(torch, srv.params), f"(f) {codec}: params not finite "
+                                         f"after the window apply")
+        if codec == "int8":
+            # where the serving path's time goes: a second cohort call of
+            # the same 4 users, and a short personalized decode
+            def again():
+                for user, b in zip(run.users, run.batches):
+                    srv.submit(user, b)
+                srv.flush()
+            row["profile_flush"] = profile_shares(torch, again)
+            row["profile_decode_4_tokens"] = profile_shares(
+                torch, lambda: serve._decode_personalized(
+                    cfg, run.heads, run.prompt, LM_PROMPT + 4, LM_PROMPT))
+            print(f"(f) profiles, int8 server: flush "
+                  f"{json.dumps(row['profile_flush'])}; decode "
+                  f"{json.dumps(row['profile_decode_4_tokens'])}",
+                  flush=True)
+        keep = (cfg, run.params)
+        del run, srv, batch
+        torch.cuda.empty_cache()
+    check(out["fp32"]["ring_bytes_per_user"]
+          >= RING_RATIO * out["int8"]["ring_bytes_per_user"],
+          "(f): int8 ring bytes per user not RING_RATIO below fp32")
+    return out, keep
+
+
+def profile_shares(torch, fn):
+    """Wall, device busy time, and device time in ssd_fwd, in GEMMs and in
+    everything else, of one ``fn()`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sums = {"ssd_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name = {}
+    n = 0
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        n += 1
+        name = e.name.lower()
+        # cuBLAS names its Hopper GEMMs nvjet_*, its older ones *gemm*/xmma
+        key = "ssd_fwd" if "ssd_fwd" in name else "gemm" if any(
+            w in name for w in ("gemm", "xmma", "cutlass", "nvjet")) \
+            else "other"
+        ms = e.time_range.elapsed_us() / 1e3
+        sums[key] += ms
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+    busy = sum(sums.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall * 1e3, "device_kernels": n, "busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            **{f"{k}_ms": v for k, v in sums.items()},
+            **{f"{k}_share": v / busy if busy else 0.0
+               for k, v in sums.items()},
+            "top_ms": [(k, round(v, 3)) for k, v in top]}
+
+
+def prefill_phase(torch, cfg, params):
+    """(g): ``make_prefill_step`` at full width, bf16 activations, at
+    PREFILL_SHAPES: wall per call (3 calls after a warm-up), ssd_fwd
+    launches (24 per call), and one call under the profiler."""
+    from repro_torch.kernels.ssd import kernel as KS
+    from repro_torch.launch import steps
+    step = steps.make_prefill_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for B, S in PREFILL_SHAPES:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                         device="cuda", dtype=torch.int32)}
+        with torch.no_grad():
+            logits = step(params, batch)
+            torch.cuda.synchronize()
+            check(tuple(logits.shape) == (B, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"(g) prefill ({B}, {S}): logits {tuple(logits.shape)} "
+                  f"not finite or misshapen")
+            KS.reset_launches()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step(params, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = KS.LAUNCHES["ssd_fwd"]
+            check(launches == 3 * cfg.n_layers,
+                  f"(g) prefill ({B}, {S}): ssd_fwd launched {launches} "
+                  f"times in 3 calls")
+            prof = profile_shares(torch, lambda: step(params, batch))
+        row = {"wall_ms": [w * 1e3 for w in walls],
+               "wall_ms_median": statistics.median(walls) * 1e3,
+               "tokens_per_s": B * S / statistics.median(walls),
+               "ssd_fwd_launches_per_call": launches // 3,
+               "profile": prof}
+        out[f"{B}x{S}"] = row
+        print(f"(g) prefill (B, S) = ({B}, {S}) bf16: {json.dumps(row)}",
+              flush=True)
+        del batch, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_cpu_parity(torch):
+    """(h): the same weights at full width but 2 layers, f32, on the card
+    and on the CPU: prefill_logits, and the heads of one mode-C flush of 2
+    users."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serving import PersonalizationServer
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=2,
+                              dtype="float32")
+    p_cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+    tokens = synthetic_token_batch(5, 2, 256, cfg.vocab)["tokens"]
+    with torch.no_grad():
+        lg = api.prefill_logits(cfg, p_gpu, {"tokens": torch.from_numpy(
+            tokens).cuda()}).cpu()
+        lc = api.prefill_logits(cfg, p_cpu, {"tokens": torch.from_numpy(
+            tokens)})
+    diff = float((lg - lc).abs().max())
+    check(torch.allclose(lg, lc, **LM_PREFILL_TOL)
+          and not torch.allclose(torch.zeros_like(lc), lc, **LM_PREFILL_TOL)
+          and not torch.allclose(-lc, lc, **LM_PREFILL_TOL),
+          f"(h) prefill logits card vs CPU differ by {diff} (tol "
+          f"{LM_PREFILL_TOL})")
+    pcfg = PersAFLConfig(option="C", lam=30.0, alpha=0.01, inner_steps=5,
+                         inner_eta=0.01)
+    batches = [serve._user_batch(cfg, u, 128) for u in range(2)]
+    heads, walls = {}, {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        srv = PersonalizationServer(
+            params, lambda p, b: api.loss_fn(cfg, p, b), pcfg, modes=("C",),
+            max_pending=2, device=dev)
+        t0 = time.perf_counter()
+        for u, b in enumerate(batches):
+            srv.submit(f"user{u}", b)
+        srv.flush()
+        heads[dev] = [x.cpu() for x in tree_leaves(
+            srv.stacked_heads(["user0", "user1"]))]
+        walls[dev] = time.perf_counter() - t0
+    hdiff = max(float((a - b).abs().max())
+                for a, b in zip(heads["cuda"], heads["cpu"]))
+    moved = max(float((h - p[None]).abs().max())
+                for h, p in zip(heads["cpu"], tree_leaves(p_cpu)))
+    print(f"(h) card vs CPU, mamba2-130m at 2 layers f32: prefill logits "
+          f"max |diff| {diff:.3e} (tol {LM_PREFILL_TOL}); heads of a mode-C "
+          f"flush of 2 users max |diff| {hdiff:.3e} (tol {LM_HEAD_TOL}), "
+          f"heads moved {moved:.3e}; flush wall card {walls['cuda']:.3f} s "
+          f"cpu {walls['cpu']:.3f} s", flush=True)
+    check(all(torch.allclose(a, b, **LM_HEAD_TOL)
+              for a, b in zip(heads["cuda"], heads["cpu"])),
+          f"(h) heads card vs CPU differ by {hdiff}")
+    check(moved > 10 * LM_HEAD_TOL["atol"],
+          f"(h) heads moved only {moved}: the check cannot see a no-op")
+    return {"prefill_diff": diff, "head_diff": hdiff, "moved": moved}
+
+
 def main() -> int:
     try:
         import torch
@@ -685,17 +1159,20 @@ def main() -> int:
     try:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
-        path = _build.build("fused_update")
-        print(f"build: {time.perf_counter() - t0:.2f} s {path.name}",
-              flush=True)
-        log = path.with_suffix(".log")
-        if log.is_file():
-            print(log.read_text().strip(), flush=True)
+        paths = _build.build_all(KERNEL_LIBS)
+        print(f"build ({len(paths)} nvcc in parallel): "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"{[p.name for p in paths]}", flush=True)
+        for path in paths:
+            log = path.with_suffix(".log")
+            if log.is_file():
+                print(log.read_text().strip(), flush=True)
 
         setup = fig2_setup(torch)
         from repro_torch.tree import tree_leaves
         cnn_shapes = [tuple(x.shape) for x in tree_leaves(setup[1])]
-        results = kernel_phase(torch, cnn_shapes)
+        results = kernel_phase(torch, cnn_shapes, mamba2_leaf_shapes())
+        results["ssd_fwd"] = ssd_kernel_phase(torch)
         imm_ms = immediate_apply_ms(torch, setup[1])
         print(f"immediate apply as the main path runs it (H2D copy of one "
               f"host row + {len(cnn_shapes)} launches): {imm_ms:.4f} ms",
@@ -705,24 +1182,46 @@ def main() -> int:
         profile_training(torch, setup)
         cpu_parity(torch, setup, hists)
         serve_launches, _ = serving_phase(torch, setup)
+        lm, (lm_cfg, lm_params) = lm_serving_phase(torch)
+        prefill = prefill_phase(torch, lm_cfg, lm_params)
+        del lm_params
+        torch.cuda.empty_cache()
+        lm_cpu_parity(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     kernels = []
     for name, rows in results.items():
-        main = rows[0]          # the main path's shape comes first
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
+        # the main path's shape comes first: the CNN's leaves for the
+        # server-apply kernels, the (f) cohort (4 users x 128 tokens, bf16
+        # activations) for ssd_fwd
+        main = rows[0] if name != "ssd_fwd" else next(
+            r for r in rows if r["shape"] == SSD_MAIN_SHAPE)
+        if name == "ssd_fwd":
+            # the main path of this slice is serving phase (f)
+            n = lm["fp32"]["ssd_fwd_launches"]
+        else:
             # apply_rows_q runs on the serving path (e) only; the others'
             # counts are those of training runs (a)-(d)
-            "launches": launches.get(name, serve_launches.get(name)),
-            "launches_serving": serve_launches.get(name, 0),
+            n = launches.get(name, serve_launches.get(name))
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": n,
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "shapes": rows})
+            "shape": main["shape"], "shapes": rows}
+        if name == "ssd_fwd":
+            entry["launches_int8"] = lm["int8"]["ssd_fwd_launches"]
+            entry["launches_prefill_per_call"] = {
+                k: v["ssd_fwd_launches_per_call"] for k, v in prefill.items()}
+        else:
+            entry["launches_serving"] = serve_launches.get(name, 0)
+            entry["launches_lm_window_apply"] = sum(
+                v["window_apply_launches"] for v in lm.values()
+                if v["window_apply_kernel"] == name)
+        kernels.append(entry)
     kernels[0]["immediate_apply_ms"] = imm_ms
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}))

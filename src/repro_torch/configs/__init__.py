@@ -1,1 +1,56 @@
-"""Model configurations of the port (so far the paper's CNNs)."""
+"""Config registry: ``get_config(arch_id)`` / ``list_archs()``, as in
+``src/repro/configs/__init__.py``.
+
+The registry holds the architectures the port runs (so far ``mamba2-130m``);
+the paper's CNNs live in :mod:`repro_torch.configs.paper_models`.  The
+reference's other architectures raise ``NotImplementedError`` naming the
+ROADMAP item that brings their family, and an id neither package knows
+raises ``KeyError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs.base import (ArchConfig, InputShape,  # noqa: F401
+                                      INPUT_SHAPES, get_shape,
+                                      reduce_for_smoke)
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+
+_REGISTRY: Dict[str, ArchConfig] = {c.arch_id: c for c in (_mamba2,)}
+
+_ATTN = ("ROADMAP.md Queue 1 item 3: the attention slice "
+         "(models/attention.py, models/lm.py)")
+# the reference's other architectures, by the family slice that brings them
+_NOT_PORTED: Dict[str, str] = {
+    "codeqwen1.5-7b": _ATTN,
+    "gemma2-2b": _ATTN,
+    "minitron-8b": _ATTN,
+    "qwen1.5-110b": _ATTN,
+    "zamba2-1.2b": _ATTN + " (the hybrid's shared attention block)",
+    "deepseek-v3-671b": "ROADMAP.md Queue 1 item 3: the moe slice "
+                        "(models/moe.py, MLA attention)",
+    "granite-moe-1b-a400m": "ROADMAP.md Queue 1 item 3: the moe slice "
+                            "(models/moe.py)",
+    "internvl2-76b": _ATTN + " and its vision stub",
+    "whisper-large-v3": "ROADMAP.md Queue 1 item 3: the encdec slice "
+                        "(models/encdec.py)",
+}
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in _REGISTRY:
+        return _REGISTRY[arch_id]
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet; it comes with "
+            f"{_NOT_PORTED[arch_id]}")
+    raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)} "
+                   f"(not ported yet: {sorted(_NOT_PORTED)})")
+
+
+def list_archs() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "get_config",
+           "get_shape", "list_archs", "reduce_for_smoke"]

@@ -1,4 +1,6 @@
-"""Synthetic federated datasets (numpy, bit-identical to the reference)."""
+"""Synthetic federated datasets and token streams (numpy, bit-identical to
+the reference)."""
 from repro_torch.data.federated import (ClientData,  # noqa: F401
                                         eval_batch, make_federated_dataset,
-                                        sample_batches)
+                                        sample_batches,
+                                        synthetic_token_batch)

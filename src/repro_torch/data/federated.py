@@ -131,3 +131,20 @@ def make_federated_dataset(kind: str, n_clients: int, classes_per_client: int,
     return partition_heterogeneous(x, y, n_clients=n_clients,
                                    classes_per_client=classes_per_client,
                                    seed=seed + 1)
+
+
+# ---------------------------------------------------------------------------
+# token stream for LM smoke tests / examples
+# ---------------------------------------------------------------------------
+
+def synthetic_token_batch(seed: int, batch: int, seq: int, vocab: int):
+    rng = np.random.RandomState(seed)
+    # a learnable synthetic language: tokens follow a noisy linear recurrence
+    toks = np.zeros((batch, seq + 1), np.int32)
+    toks[:, 0] = rng.randint(0, vocab, batch)
+    mult = 31
+    for t in range(seq):
+        nxt = (toks[:, t] * mult + 7) % vocab
+        noise = rng.rand(batch) < 0.1
+        toks[:, t + 1] = np.where(noise, rng.randint(0, vocab, batch), nxt)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

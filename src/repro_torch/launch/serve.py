@@ -1,0 +1,301 @@
+"""Personalized serving driver, as in ``src/repro/launch/serve.py``.
+
+Decode is driven through :class:`repro_torch.serving.PersonalizationServer`:
+each request is a *user* with their own token stream; the server coalesces
+all users' personalization (mode "B" one-step fine-tune or mode "C"
+Moreau-envelope prox solve) into one pow2-bucketed cohort call, and decode
+runs ``torch.func.vmap`` over the stacked per-user heads, so there is no
+per-user Python loop on either side.  The prompt's first L−1 tokens warm the
+cache through a loop of decode steps; the decode loop proper is step by step
+because each token depends on the previous argmax.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --personalize --requests 4 --tokens 16 [--delta-dtype int8]
+
+runs on the card (``--device cuda``, the default; ``--device cpu`` for the
+CPU).  ``--smoke`` cuts the config to its CPU-sized variant.
+
+``--personal-subset PREFIXES`` switches personalization to partial-model
+(head-only) form: only the named param subtrees are personalized, banked and
+stacked per user; decode merges the stacked heads over the one shared
+backbone and vmaps with ``in_dims`` ``None`` on backbone leaves, so backbone
+memory stays O(1) in the user count.
+
+Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
+item: ``--listen`` (the socket front-end), ``--model-axis`` (the 2-D mesh)
+and ``--coordinator`` / ``--num-processes`` (multi-process serving).  The
+options that only those paths read (``--flush-ms``, ``--window-ms``,
+``--max-inflight``, ``--serve-seconds``, ``--process-id``) come with them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+from torch.func import vmap
+
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.core.subset import SubsetSpec, merge_subset
+from repro_torch.core.types import PersAFLConfig
+from repro_torch.data import synthetic_token_batch
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.tree import tree_map
+
+_TRANSPORT = ("the socket front-end (serving/transport.py) comes with "
+              "ROADMAP.md Queue 1 item 2")
+_MESH = ("the multi-device paths come with ROADMAP.md Queue 1 item 4 "
+         "(sharding/*, launch/mesh.py)")
+
+
+def _personalize_len(cfg, n: int) -> int:
+    """SSM archs run the chunked SSD scan over the personalization stream,
+    so the length rounds up to the next chunk multiple."""
+    chunk = cfg.ssm.chunk if getattr(cfg, "ssm", None) else 1
+    return -(-max(n, 1) // chunk) * chunk
+
+
+def _user_batch(cfg, seed: int, length: int):
+    """One user's personalization stream (numpy int32 leaves with batch dim
+    1; the cohort engine stacks them and copies each leaf to the device
+    once).  The reference's ``visual``/``frames`` leaves belong to families
+    that are not ported yet."""
+    return synthetic_token_batch(seed, 1, length, cfg.vocab)
+
+
+def make_prefill(cfg):
+    """Prompt prefill: the prompt's first L−1 tokens only warm the cache, so
+    they advance through decode steps; the caller then decodes from the
+    prompt's last token."""
+    def prefill(params, cache, prompt):
+        for t in range(prompt.shape[1] - 1):
+            _, cache = api.decode_step(cfg, params, cache,
+                                       prompt[:, t:t + 1], t)
+        return cache
+    return prefill
+
+
+@torch.no_grad()
+def _decode_shared(cfg, params, prompt, max_len, prompt_len):
+    """Batched decode with the shared global params (no personalization)."""
+    cache = api.init_cache(cfg, params, {"tokens": prompt[:, :1]}, max_len,
+                           cfg.activation_dtype)
+    cache = make_prefill(cfg)(params, cache, prompt)
+    tok = prompt[:, -1:]
+    generated = []
+    for pos in range(prompt_len - 1, max_len - 1):
+        logits, cache = api.decode_step(cfg, params, cache, tok, pos)
+        tok = logits[:, -1, :].argmax(-1)[:, None].to(torch.int32)
+        generated.append(tok)
+    return torch.cat(generated, dim=1) if generated else None
+
+
+@torch.no_grad()
+def _decode_personalized(cfg, heads, prompt, max_len, prompt_len,
+                         params=None, spec=None):
+    """Per-user decode: every request carries its own personalized head, so
+    params, cache and tokens all vmap over the user axis (inner batch of 1).
+
+    With a ``personal_subset`` (``spec``/``params`` given) ``heads`` is a
+    stacked *subset* tree; merging it over the shared backbone gives a mixed
+    tree whose personal leaves carry the user axis and whose backbone leaves
+    do not, and ``in_dims`` 0 on personal leaves and ``None`` on the backbone
+    vmaps it without replicating the backbone per user.
+    """
+    if spec is not None:
+        heads = tree_map(lambda x: x, merge_subset(params, heads))
+        p_axes = tree_map(lambda m: 0 if m else None, spec.mask(params))
+    else:
+        p_axes = 0
+    U = prompt.shape[0]
+    prompt_u = prompt[:, None, :]                      # [U, 1, L]
+    one = api.init_cache(cfg, params, {"tokens": prompt[:1, :1]}, max_len,
+                         cfg.activation_dtype)
+    cache = tree_map(lambda x: x[None].repeat((U,) + (1,) * x.dim()), one)
+    prefill = vmap(make_prefill(cfg), in_dims=(p_axes, 0, 0))
+    step = vmap(lambda p, c, t, pos: api.decode_step(cfg, p, c, t, pos),
+                in_dims=(p_axes, 0, 0, None))
+    cache = prefill(heads, cache, prompt_u)
+    tok = prompt_u[:, :, -1:]                          # [U, 1, 1]
+    generated = []
+    for pos in range(prompt_len - 1, max_len - 1):
+        logits, cache = step(heads, cache, tok, pos)
+        tok = logits[:, :, -1, :].argmax(-1)[..., None].to(torch.int32)
+        generated.append(tok[:, 0])                    # [U, 1]
+    return torch.cat(generated, dim=1) if generated else None
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Personalized serving of an LM through the port's "
+                    "PersonalizationServer")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=4,
+                    help="concurrent users (decode batch size)")
+    ap.add_argument("--tokens", type=int, default=16, help="tokens to decode")
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--personalize", action="store_true",
+                    help="serve per-user personalized heads through "
+                         "PersonalizationServer")
+    ap.add_argument("--personalize-len", type=int, default=None,
+                    help="per-user personalization stream length "
+                         "(default: --prompt-len)")
+    ap.add_argument("--mode", choices=("B", "C"), default="C",
+                    help="personalization mode: B = one-step MAML "
+                         "fine-tune, C = Moreau prox solve")
+    ap.add_argument("--personal-subset", default=None, metavar="PREFIXES",
+                    help="comma-separated param-path prefixes (checkpoint "
+                         "spelling, e.g. 'embed/unembed') -- only these "
+                         "leaves are personalized per user; the backbone "
+                         "stays shared and is never banked")
+    ap.add_argument("--delta-dtype", choices=("fp32", "int8"),
+                    default="fp32",
+                    help="delta banking codec: int8 quantizes banked "
+                         "delta/residual rows (error feedback keeps "
+                         "convergence)")
+    ap.add_argument("--lam", type=float, default=30.0)
+    ap.add_argument("--alpha", type=float, default=0.01)
+    ap.add_argument("--inner-steps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="experiments/serve")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: the card; 'cpu' runs on "
+                         "the CPU)")
+    # the reference's network and mesh flags, not ported yet
+    ap.add_argument("--listen", type=int, default=None, metavar="PORT",
+                    help="not ported yet (socket front-end)")
+    ap.add_argument("--model-axis", type=int, default=None, metavar="M",
+                    help="not ported yet (2-D mesh)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="not ported yet (multi-process serving)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="not ported yet (multi-process serving)")
+    return ap
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one :func:`main` run built and measured: the JSON ``record``
+    it wrote, the server (``None`` without ``--personalize``), the global
+    params, the users' streams and heads, the prompt and decoded tokens,
+    and the wall seconds of the personalization (submit + flush, synced)
+    and of the decode."""
+    cfg: object
+    params: dict
+    record: dict
+    server: Optional[object] = None
+    users: Optional[list] = None
+    batches: Optional[list] = None
+    heads: Optional[dict] = None
+    prompt: Optional[torch.Tensor] = None
+    out_tokens: Optional[torch.Tensor] = None
+    personalize_s: Optional[float] = None
+    decode_s: float = 0.0
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None) -> ServeRun:
+    args = build_parser().parse_args(argv)
+    if args.listen is not None:
+        raise NotImplementedError(f"--listen: {_TRANSPORT}")
+    if args.model_axis is not None:
+        raise NotImplementedError(f"--model-axis: {_MESH}")
+    if args.coordinator is not None or args.num_processes is not None:
+        raise NotImplementedError(f"--coordinator/--num-processes: {_MESH}")
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    gen = torch.Generator().manual_seed(args.seed)
+    params = api.init_params(cfg, gen, dev)
+
+    B = args.requests
+    max_len = args.prompt_len + args.tokens
+    prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
+                           generator=gen, dtype=torch.int32).to(dev)
+    run = ServeRun(cfg=cfg, params=params, record={}, prompt=prompt)
+
+    subset_spec = None
+    if args.personalize:
+        from repro_torch.serving import PersonalizationServer
+        plen = _personalize_len(cfg, args.personalize_len
+                                if args.personalize_len is not None
+                                else args.prompt_len)
+        loss = lambda p, b: api.loss_fn(cfg, p, b)          # noqa: E731
+        pcfg = PersAFLConfig(option="C", lam=args.lam, alpha=args.alpha,
+                             inner_steps=args.inner_steps, inner_eta=0.01)
+        subset_spec = SubsetSpec.resolve(args.personal_subset, params)
+        server = PersonalizationServer(params, loss, pcfg,
+                                       modes=(args.mode,),
+                                       max_pending=max(B, 1),
+                                       personal_subset=subset_spec,
+                                       delta_dtype=args.delta_dtype,
+                                       device=dev)
+        run.server = server
+        run.users = [f"user{u}" for u in range(B)]
+        run.batches = [_user_batch(cfg, args.seed + u, plen)
+                       for u in range(B)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        # the B-th submit reaches max_pending and flushes the queue
+        tickets = [server.submit(user, batch, mode=args.mode)
+                   for user, batch in zip(run.users, run.batches)]
+        server.flush()
+        _sync(dev)
+        run.personalize_s = time.perf_counter() - t0
+        run.heads = server.stacked_heads([t.user for t in tickets])
+        st = server.stats
+        print(f"personalized {B} users through PersonalizationServer "
+              f"(mode {args.mode}, len={plen}, "
+              f"cohort_calls={st['cohort_calls']}, "
+              f"host_materializations={st['host_materializations']}) "
+              f"in {run.personalize_s:.3f}s", flush=True)
+
+    t0 = time.perf_counter()
+    if run.heads is not None:
+        out_tokens = _decode_personalized(cfg, run.heads, prompt, max_len,
+                                          args.prompt_len, params=params,
+                                          spec=subset_spec)
+    else:
+        out_tokens = _decode_shared(cfg, params, prompt, max_len,
+                                    args.prompt_len)
+    _sync(dev)
+    run.decode_s = wall = time.perf_counter() - t0
+    run.out_tokens = out_tokens
+    tps = B * args.tokens / wall
+    print(f"decoded {args.tokens} tokens × {B} requests in {wall:.2f}s "
+          f"({tps:.1f} tok/s) on {dev}", flush=True)
+    if out_tokens is not None:
+        print("sample:", out_tokens[0].tolist(), flush=True)
+    record = {"arch": cfg.arch_id, "tok_per_s": tps,
+              "personalized": args.personalize, "mode": args.mode,
+              "users": B, "model_axis": args.model_axis,
+              "personal_subset": (subset_spec.descriptor()
+                                  if subset_spec is not None else None),
+              "delta_dtype": args.delta_dtype}
+    if run.server is not None:
+        st = run.server.stats
+        record["ring_bytes_per_user"] = st["ring_bytes_per_user"]
+        record["ring_bytes_saved_per_user"] = \
+            st["ring_bytes_saved_per_user"]
+        record["host_materializations"] = st["host_materializations"]
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"serve_{cfg.arch_id}.json"), "w") as f:
+        json.dump(record, f, indent=2)
+    run.record = record
+    return run
+
+
+if __name__ == "__main__":
+    main()

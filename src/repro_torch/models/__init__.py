@@ -1,1 +1,2 @@
-"""Models of the port (so far the paper's CNNs)."""
+"""Models of the port: the paper's CNNs and the pure-SSM language model
+(mamba2-130m), behind ``models.api``."""

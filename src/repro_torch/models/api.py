@@ -1,0 +1,72 @@
+"""Unified model API, as in ``src/repro/models/api.py``: family dispatch used
+by PersA-FL core, the launch layer and the tests.
+
+    init_params(cfg, generator, device)    -> params tree
+    loss_fn(cfg, params, batch)            -> scalar loss  (the f_i of Eq. 2)
+    prefill_logits(cfg, params, batch)     -> last-position logits (B, V)
+    init_cache(cfg, params, batch, ...)    -> decode cache
+    decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+
+So far the pure-SSM family (mamba2-130m) is ported; the others raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm_lm
+from repro_torch.models.layers import unembed
+
+_ITEMS = {
+    "hybrid": "the attention slice (zamba2's shared attention block)",
+    "dense": "the attention slice (models/attention.py, models/lm.py)",
+    "vlm": "the attention slice (models/lm.py with its vision stub)",
+    "moe": "the moe slice (models/moe.py)",
+    "audio": "the encdec slice (models/encdec.py)",
+}
+
+
+def _family(cfg: ArchConfig) -> None:
+    if cfg.family == "ssm" and not cfg.is_encdec:
+        return
+    item = _ITEMS.get("audio" if cfg.is_encdec else cfg.family,
+                      f"its family slice ({cfg.family})")
+    raise NotImplementedError(
+        f"{cfg.arch_id}: family {cfg.family!r} is not ported yet; it comes "
+        f"with {item}, ROADMAP.md Queue 1 item 3")
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device="cuda") -> Dict:
+    _family(cfg)
+    return ssm_lm.init_ssm_lm(cfg, generator, device)
+
+
+def loss_fn(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
+    """The client loss f_i(w; D_i) -- Eq. (2) of the paper, per arch."""
+    _family(cfg)
+    return ssm_lm.ssm_lm_loss(cfg, params, batch)
+
+
+def prefill_logits(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
+    """Inference-prefill: full forward, last-position logits (B, V)."""
+    _family(cfg)
+    h = ssm_lm.ssm_lm_hidden(cfg, params, batch["tokens"],
+                             window=cfg.sliding_window)
+    return unembed(params["embed"], h[:, -1:, :], cfg.final_softcap)[:, 0]
+
+
+def init_cache(cfg: ArchConfig, params, batch: Dict, max_len: int, dtype):
+    """Decode cache on the device of ``batch["tokens"]``."""
+    _family(cfg)
+    tokens = batch["tokens"]
+    return ssm_lm.init_ssm_cache(cfg, tokens.shape[0], max_len, dtype,
+                                 tokens.device)
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
+    _family(cfg)
+    return ssm_lm.ssm_lm_decode_step(cfg, params, cache, tokens, pos)

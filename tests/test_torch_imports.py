@@ -43,5 +43,13 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.core.server", "repro_torch.convert",
                  "repro_torch.serving", "repro_torch.serving.server",
                  "repro_torch.checkpoint", "repro_torch.core.quant",
-                 "repro_torch.core.subset"):
+                 "repro_torch.core.subset", "repro_torch.configs",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.mamba2_130m",
+                 "repro_torch.kernels.ssd", "repro_torch.kernels.ssd.ref",
+                 "repro_torch.kernels.ssd.kernel",
+                 "repro_torch.kernels.ssd.ops", "repro_torch.models.layers",
+                 "repro_torch.models.mamba2", "repro_torch.models.ssm_lm",
+                 "repro_torch.models.api", "repro_torch.launch",
+                 "repro_torch.launch.steps", "repro_torch.launch.serve"):
         assert name in out["modules"]

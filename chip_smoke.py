@@ -7,8 +7,9 @@ GPU.  Run from the root of a checkout, with no arguments::
 Phases; any failure exits non-zero and prints no result line:
 
   1. build   -- one ``nvcc`` per kernel library, started together:
-     ``src/repro_torch/csrc/fused_update.cu`` and
-     ``src/repro_torch/csrc/ssd.cu``.
+     ``src/repro_torch/csrc/fused_update.cu``,
+     ``src/repro_torch/csrc/ssd.cu`` and
+     ``src/repro_torch/csrc/flash_attention.cu``.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs, within TOLS: at the main path's shapes (the
      8 leaves of the paper's MNIST CNN) and at bank-sized shapes, f32, bf16
@@ -17,14 +18,25 @@ Phases; any failure exits non-zero and prints no result line:
      SSD_TOL at SSD_CASES (the (f) cohort, (8, 4096) and (1, 32768)), f32
      and bf16 inputs, with a shared a_log, and at SSD_ROW_CASES with a
      per-row (B, H) a_log, the layout (f)'s cohort hands the kernel; chunk
-     32/64/128 within SSD_CHUNK_TOL.  Each case also shows that a no-op (a
+     32/64/128 within SSD_CHUNK_TOL; and at zamba2's SSD_ZAMBA_DIMS (N = 64,
+     H = 64) at SSD_ZAMBA_CASES, bf16, per-row a_log.
+     ``flash_attention_fwd`` against ``attention_ref`` within FLASH_TOL at
+     FLASH_CASES ((i)'s cohort, (2, 4096) f32 and bf16, gemma2-like hd 256
+     with softcap and GQA, MQA, a tail at S = 1000, and (1, 32768), checked
+     on its first and last 256 rows).  Each case also shows that a no-op (a
      zero output for the scan) and a sign-flipped result fail the same
-     check, and each per-row case that row 0's a_log for every row does.  Times are medians of
-     CUDA-event timings; ``bound_ms`` is the larger of the bytes the
-     function must move over the H100 SXM's 3.35 TB/s and its FLOPs over the
-     f32 peak (67 TFLOP/s, for ``ssd_fwd``); ``library_ms`` times one PyTorch
-     call that computes the same function (a yardstick the port never
-     calls; none exists for the scan).
+     check, each per-row case that row 0's a_log for every row does, each
+     windowed attention case that the output without the window does, and
+     each softcap case that the output without the softcap does.
+     Times are medians of CUDA-event timings; ``bound_ms`` is the larger of
+     the bytes the function must move over the H100 SXM's 3.35 TB/s and its
+     FLOPs over the card's peak for the operands' type (for ``ssd_fwd`` and
+     ``flash_attention_fwd``: 989 TFLOP/s on the bf16 tensor cores, 67
+     TFLOP/s in f32 outside them), with the f32 CUDA-core bound, the
+     ceiling of the kernels' present design, beside it; ``library_ms``
+     times one PyTorch call that
+     computes the same function (a yardstick the port never calls; none
+     exists for the scan, nor for attention with a softcap).
   3. main path -- PersA-FL asynchronous training of the paper CNN on
      label-skewed synthetic MNIST (the fig2 setup of
      ``benchmarks/common.py``: 30 clients, 5 classes each, batch 16, Q = 10,
@@ -52,17 +64,26 @@ Phases; any failure exits non-zero and prints no result line:
   6. mamba2-130m -- (f) ``repro_torch.launch.serve.main`` at full width
      (167,598,528 params), 4 users, mode C (λ = 30, α = 0.01, K = 5,
      η_in = 0.01), fp32 and int8 banking, 16 decoded tokens, then one
-     ``advance_window()``; counts zeroed just before each run.  Checks: no
-     host materialization, ``ssd_fwd`` launched 24 times per forward
-     evaluation of the LM loss (6 per cohort call, whatever the cohort size,
-     and 2 loss checks), every user's personalized loss below the global
-     loss on their own stream, the window apply one launch per leaf.
+     ``advance_window()``; counts zeroed just before each run and read
+     just after it.  Checks: no host materialization, ``ssd_fwd`` launched
+     24 times per forward evaluation of the LM loss in the run (6 per
+     cohort call, whatever the cohort size), every user's personalized loss
+     below the global loss on their own stream, the window apply one launch
+     per leaf.
      (g) ``make_prefill_step`` at PREFILL_SHAPES, bf16 activations: wall per
      call, 24 launches per call, and one call under ``torch.profiler``
      (device time in ``ssd_fwd`` against the GEMMs, device busy share).
      (h) the same weights at 2 layers, f32, card against CPU:
      ``prefill_logits`` within LM_PREFILL_TOL and the heads of one mode-C
      flush of 2 users within LM_HEAD_TOL.
+
+  7. zamba2-1.2b -- (i) ``launch.serve.main`` at full width (1,183,058,816
+     params in 21 leaves), 4 users, ``--personal-subset
+     shared,embed/unembed``, as (f) otherwise: ``ssd_fwd`` launched 38 and
+     ``flash_attention_fwd`` 6 times per forward evaluation of the loss,
+     the window apply one launch per personal leaf.  (j) prefill as (g),
+     38 + 6 launches per call.  (k) the same architecture at 6 layers (one
+     shared invocation), f32, card against CPU, as (h), with (i)'s subset.
 
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
@@ -82,15 +103,18 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-KERNEL_LIBS = ("fused_update", "ssd")
+KERNEL_LIBS = ("fused_update", "ssd", "flash_attention")
 SOURCES = {"apply_scaled": "src/repro_torch/csrc/fused_update.cu",
            "apply_rows": "src/repro_torch/csrc/fused_update.cu",
            "apply_rows_q": "src/repro_torch/csrc/fused_update.cu",
-           "ssd_fwd": "src/repro_torch/csrc/ssd.cu"}
+           "ssd_fwd": "src/repro_torch/csrc/ssd.cu",
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"apply_scaled": "src/repro/kernels/fused_update/kernel.py:229",
             "apply_rows": "src/repro/kernels/fused_update/kernel.py:129",
             "apply_rows_q": "src/repro/kernels/fused_update/kernel.py:186",
-            "ssd_fwd": "src/repro/kernels/ssd/kernel.py:73"}
+            "ssd_fwd": "src/repro/kernels/ssd/kernel.py:73",
+            "flash_attention_fwd":
+                "src/repro/kernels/flash_attention/kernel.py:69"}
 # CPU-vs-card agreement of the 8-round runs.  The card's cuDNN and the CPU's
 # oneDNN sum the f32 convolutions in different orders, so every gradient
 # differs in its last bits; Option C then forms λ(w − θ̃) from two nearly
@@ -188,7 +212,7 @@ def time_ms(torch, fn, launches: int = 20, repeats: int = 5,
     return statistics.median(times)
 
 
-def kernel_phase(torch, cnn_shapes, lm_shapes=()):
+def kernel_phase(torch, cnn_shapes, lm_cases=()):
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ref as R
 
@@ -341,18 +365,18 @@ def kernel_phase(torch, cnn_shapes, lm_shapes=()):
         qs, extra = q_inputs(m, [(n,)])
         run_case("apply_rows_q", f"M={m} n={n} {dw}", [w], qs, extra)
         del w, qs
-    if lm_shapes:
-        # the window apply of phase (f): mamba2-130m's 12 leaves at M = 4
-        # (4 users, one pow2 bucket), one launch per leaf
+    for lm_label, lm_shapes in lm_cases:
+        # the window apply of phases (f) and (i): an LM's personal leaves
+        # at M = 4 (4 users, one pow2 bucket), one launch per leaf
         ws = [randn(*sh, scale=0.5) for sh in lm_shapes]
         stacks = [randn(4, *sh) for sh in lm_shapes]
-        run_case("apply_rows", "mamba2-130m 12 leaves M=4 f32", ws, stacks,
+        run_case("apply_rows", f"{lm_label} M=4 f32", ws, stacks,
                  row_weights(4))
         del stacks
         qs, extra = q_inputs(4, lm_shapes)
-        run_case("apply_rows_q", "mamba2-130m 12 leaves M=4 w f32", ws, qs,
-                 extra)
+        run_case("apply_rows_q", f"{lm_label} M=4 w f32", ws, qs, extra)
         del ws, qs
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return results
 
@@ -364,7 +388,30 @@ SSD_TOL = dict(atol=5e-4, rtol=5e-4)
 # chunk invariance of the kernel (1e-4, as the reference's
 # test_ssd_chunk_invariance)
 SSD_CHUNK_TOL = dict(atol=1e-4, rtol=1e-4)
-F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# the card's peak rate for the operands' type (NVIDIA's data sheet, H100
+# SXM, dense): bf16 operands could run on the tensor cores with f32
+# accumulation and lose nothing against the kernels' f32 FMAs on widened
+# bf16, so the bound of a bf16 case is taken at the bf16 tensor-core rate;
+# the f32 CUDA-core rate, the ceiling of the kernels' present design, is
+# reported beside it
+F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # bf16 tensor cores
+
+
+def bound_fields(torch, dtype, nbytes, flops, ms):
+    """``bound_ms`` / ``bound_by`` at the peak rate for ``dtype``, the f32
+    CUDA-core bound beside it, and the share of each that ``ms`` reaches."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_f = flops / peak * 1e3
+    t_f32 = flops / F32_FLOPS_PER_S * 1e3
+    bound = max(t_b, t_f)
+    return {"bound_ms": bound,
+            "bound_by": "bytes" if t_b > t_f else "operations",
+            "bound_share": bound / ms,
+            "f32_cuda_core_bound_ms": max(t_b, t_f32),
+            "f32_cuda_core_share": max(t_b, t_f32) / ms,
+            "bytes": nbytes, "flops": flops}
 # (B, S) at mamba2-130m's H 24, P 64, G 1, N 128, chunk 128: the
 # personalization cohort folded into the batch (4 users x 128 tokens), the
 # prefill of phase (g) at (8, 4096), and prefill_32k's length at batch 1
@@ -376,14 +423,19 @@ SSD_CASES = ((4, 128), (8, 4096), (1, 32768))
 SSD_ROW_CASES = ((4, 128, "f32"), (4, 128, "bf16"), (8, 4096, "bf16"))
 SSD_DIMS = dict(H=24, P=64, G=1, N=128, chunk=128)
 SSD_MAIN_SHAPE = "B=4 S=128 bf16 a_log (B,H)"
+# zamba2-1.2b's scan (H 64, P 64, G 1, N 64: 4 state entries a thread, not
+# 8), bf16, per-row a_log, at (i)'s cohort (4 users x 128 tokens) and (j)'s
+# (8, 4096)
+SSD_ZAMBA_DIMS = dict(H=64, P=64, G=1, N=64, chunk=128)
+SSD_ZAMBA_CASES = ((4, 128), (8, 4096))
 
 
-def ssd_inputs(torch, g, B, S, dtype, per_row=False):
-    """Inputs at SSD_DIMS on the card, scaled so that |y| is of order 1: dt
+def ssd_inputs(torch, g, B, S, dtype, per_row=False, dims=SSD_DIMS):
+    """Inputs at ``dims`` on the card, scaled so that |y| is of order 1: dt
     as the model's softplus, a_log as mamba2's init (A from -1 to -16), B
     and C with C.B of order 1.  ``per_row`` gives a_log as (B, H), row b
     the init rolled by 5b heads, so that no two rows agree."""
-    H, P, G, N = (SSD_DIMS[k] for k in "HPGN")
+    H, P, G, N = (dims[k] for k in "HPGN")
     dev = "cuda"
     x = torch.randn(B, S, H, P, device=dev, generator=g).to(dtype)
     dt = torch.nn.functional.softplus(
@@ -413,24 +465,29 @@ def ssd_kernel_phase(torch):
     (f32 dt), with a shared (H,) a_log, and at SSD_ROW_CASES with a per-row
     (B, H) one, within SSD_TOL; a zero and a sign-flipped output must fail
     the same check, and with per-row a_log so must the output of a kernel
-    that read row 0 for every row; chunk invariance at (1, 1024)."""
+    that read row 0 for every row; chunk invariance at (1, 1024).  The
+    same at zamba2's dims (SSD_ZAMBA_DIMS, SSD_ZAMBA_CASES, bf16, per-row
+    a_log)."""
     from repro_torch.kernels.ssd import kernel as K
     from repro_torch.kernels.ssd.ref import ssd_ref
     g = torch.Generator(device="cuda").manual_seed(1)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    cases = [(B, S, d, False) for B, S in SSD_CASES for d in dtypes]
-    cases += [(B, S, d, True) for B, S, d in SSD_ROW_CASES]
+    cases = [(B, S, d, False, SSD_DIMS) for B, S in SSD_CASES for d in dtypes]
+    cases += [(B, S, d, True, SSD_DIMS) for B, S, d in SSD_ROW_CASES]
+    cases += [(B, S, "bf16", True, SSD_ZAMBA_DIMS)
+              for B, S in SSD_ZAMBA_CASES]
     rows = []
     K.reset_launches()
-    for B, S, dname, per_row in cases:
-        ins = ssd_inputs(torch, g, B, S, dtypes[dname], per_row)
-        label = f"B={B} S={S} {dname}" + (" a_log (B,H)" if per_row
-                                           else "")
+    for B, S, dname, per_row, dims in cases:
+        ins = ssd_inputs(torch, g, B, S, dtypes[dname], per_row, dims)
+        label = (f"B={B} S={S} {dname}" + (" a_log (B,H)" if per_row
+                                            else "")
+                 + (" zamba2 H=64 N=64" if dims is SSD_ZAMBA_DIMS else ""))
         want = ssd_ref(*ins)
         torch.cuda.empty_cache()
         poison = torch.full_like(want, float("nan"))
         del poison
-        got = K.ssd_fwd(*ins, chunk=SSD_DIMS["chunk"])
+        got = K.ssd_fwd(*ins, chunk=dims["chunk"])
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all())
@@ -455,26 +512,22 @@ def ssd_kernel_phase(torch):
         check(0.05 < y_abs < 20.0, f"ssd_fwd {label}: inputs give mean "
                                    f"|y| {y_abs}, not of order 1")
         nbytes, flops = ssd_cost(B, S, x_bytes=ins[0].element_size(),
-                                 alog_rows=B if per_row else 1, **SSD_DIMS)
+                                 alog_rows=B if per_row else 1, **dims)
         big = B * S >= 32768
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_f = flops / F32_FLOPS_PER_S * 1e3
         row = {"shape": label, "max_abs_err": err,
                "zero_err": float(want.abs().max()),
                "row0_a_log_err": row0_err,
                "mean_abs_y": y_abs,
                "ms": time_ms(torch, lambda: K.ssd_fwd(
-                   *ins, chunk=SSD_DIMS["chunk"]),
+                   *ins, chunk=dims["chunk"]),
                    launches=5 if big else 20),
                "plain_ms": time_ms(torch, lambda: ssd_ref(*ins),
                                    launches=1, repeats=1,
                                    warmup=0 if big else 1),
-               "bound_ms": max(t_b, t_f),
-               "bound_by": "bytes" if t_b > t_f else "operations",
-               "bytes": nbytes, "flops": flops,
                # no single PyTorch call computes the scan
                "library_ms": None}
-        row["f32_peak_share"] = row["bound_ms"] / row["ms"]
+        row.update(bound_fields(torch, ins[0].dtype, nbytes, flops,
+                                row["ms"]))
         rows.append(row)
         print(f"kernel ssd_fwd {label}: {json.dumps(row)}", flush=True)
         del ins, want, got
@@ -487,6 +540,218 @@ def ssd_kernel_phase(torch):
           f"ssd_fwd: chunk 32/64/128 disagree by {inv}")
     print(f"kernel ssd_fwd chunk invariance (1, 1024) chunk 32/64/128: max "
           f"abs diff {inv:.3e} (tol {SSD_CHUNK_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# flash_attention_fwd against attention_ref on the card, as the reference's
+# own tests (tests/test_kernels.py:31-43): 2e-5 in f32 (the kernel sums q.k
+# and p.v in another order), 2e-2 in bf16 (the reference forms q.k in bf16
+# and rounds the probabilities to bf16; the kernel keeps both in f32)
+FLASH_TOL = {"f32": dict(atol=2e-5, rtol=2e-5),
+             "bf16": dict(atol=2e-2, rtol=2e-2)}
+# (B, S, Hq, Hkv, hd, dtype, window, softcap): (i)'s cohort (4 users x 128
+# tokens, zamba2's heads, its 4096 window wider than the stream); (j)'s
+# (2, 4096) in f32 and bf16 with a 1024 window; gemma2-like hd 256, GQA
+# 2:1, with gemma2's softcap 50 in f32, windowed and not, and a softcap of
+# 5 in bf16; MQA; a tail (S not a multiple of the 64-row tile) with GQA
+# 4:1; and prefill_32k's length at batch 1.  Every softcap case must tell
+# the output without the softcap from the plain version's.  At these
+# inputs (logits of std 2 in f32, 1 in bf16) a cap of 50 moves the output
+# by about 0.1 in f32, thousands of times FLASH_TOL, but by less than
+# FLASH_TOL in bf16; logits large enough for a cap of 50 to bind in bf16
+# are ones that the reference's bf16 q.k rounds by more than FLASH_TOL
+# (measured on the CPU at (1, 2048, 8, 4, 256)), so the bf16 cases take a
+# cap of 5, which moves the output by about 20 x FLASH_TOL.
+FLASH_CASES = (
+    (4, 128, 32, 32, 64, "bf16", 4096, 0.0),
+    (2, 4096, 32, 32, 64, "f32", 1024, 0.0),
+    (2, 4096, 32, 32, 64, "bf16", 1024, 0.0),
+    (1, 2048, 8, 4, 256, "f32", 1024, 50.0),
+    (1, 2048, 8, 4, 256, "f32", 0, 50.0),
+    (1, 2048, 8, 4, 256, "bf16", 1024, 5.0),
+    (1, 2048, 8, 4, 256, "bf16", 0, 5.0),
+    (1, 1024, 8, 1, 128, "f32", 0, 0.0),
+    (1, 1000, 8, 2, 64, "f32", 300, 0.0),
+    (1, 32768, 32, 32, 64, "bf16", 4096, 0.0),
+)
+FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
+# past this length the plain version's logits do not fit: the case is
+# checked on its first FLASH_EDGE rows (against the plain version on the
+# first FLASH_EDGE positions) and its last FLASH_EDGE rows (against the
+# plain version on the last window + FLASH_EDGE positions, which hold those
+# rows' whole windows)
+FLASH_PLAIN_MAX_S, FLASH_EDGE = 8192, 256
+
+
+def live_pairs(S, window):
+    """(query, key) pairs one head attends: sum over i of min(i + 1, W)."""
+    W = min(window, S) if window else S
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def flash_inputs(torch, g, B, S, Hq, Hkv, hd, dtype):
+    """q, k, v on the card.  k unit normal; v unit normal plus t/S along
+    the position t, so the output is of order 1 and moves with the window;
+    q 2 x unit normal in f32 (a peaked softmax) and unit normal in bf16,
+    where the reference's bf16 logits would otherwise move the output by
+    up to 1.1 x FLASH_TOL (measured on the CPU at (4096, 1024))."""
+    dev = "cuda"
+    q_scale = 2.0 if dtype == torch.float32 else 1.0
+    q = (q_scale * torch.randn(B, S, Hq, hd, device=dev, generator=g)
+         ).to(dtype)
+    k = torch.randn(B, S, Hkv, hd, device=dev, generator=g).to(dtype)
+    pos = torch.arange(S, device=dev, dtype=torch.float32) / S
+    v = (torch.randn(B, S, Hkv, hd, device=dev, generator=g)
+         + pos[None, :, None, None]).to(dtype)
+    return q, k, v
+
+
+def sdpa_library(torch, q, k, v, window, cap, long):
+    """One ``scaled_dot_product_attention`` call computing the kernel's
+    function on the same tensors (heads moved to dim 1 as views), or None
+    with a softcap, which it does not take.  A window narrower than S goes
+    in as a boolean mask.  At long lengths only the flash and
+    memory-efficient backends are allowed: the math fallback would
+    materialize the logits."""
+    if cap:
+        return None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    S, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(scale=q.shape[-1] ** -0.5, enable_gqa=Hq != Hkv)
+    if window and window < S:
+        i = torch.arange(S, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) \
+            & (i[None, :] > i[:, None] - window)
+    else:
+        kw["is_causal"] = True
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    if not long:
+        backends.append(SDPBackend.MATH)
+
+    def call():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    return call
+
+
+def flash_kernel_phase(torch):
+    """flash_attention_fwd against attention_ref on the card at
+    FLASH_CASES within FLASH_TOL; a zero and a sign-flipped output must
+    fail the same check, in every windowed case (window < S) so must the
+    output without the window, and in every softcap case the output
+    without the softcap."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rows = []
+    for B, S, Hq, Hkv, hd, dname, window, cap in FLASH_CASES:
+        label = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} {dname} "
+                 f"window={window}" + (f" softcap={cap:g}" if cap else ""))
+        q, k, v = flash_inputs(torch, g, B, S, Hq, Hkv, hd, dtypes[dname])
+        kw = dict(causal=True, window=window, softcap=cap)
+        long = S > FLASH_PLAIN_MAX_S
+        torch.cuda.empty_cache()
+        poison = torch.full_like(q, float("nan"))
+        del poison
+        got = K.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"flash_attention_fwd {label}: output not finite")
+        windowed = 0 < window < S
+        if not long:
+            def plain():
+                return attention_ref(q, k, v, **kw)
+            pairs = [(got, plain())]
+            nowin = [attention_ref(q, k, v, causal=True, softcap=cap)] \
+                if windowed else []
+            nocap = [attention_ref(q, k, v, causal=True, window=window)] \
+                if cap else []
+            plain_note = "whole case"
+        else:
+            E, L = FLASH_EDGE, window + FLASH_EDGE
+
+            def plain():
+                return attention_ref(q[:, -L:], k[:, -L:], v[:, -L:],
+                                     **kw)[:, -E:]
+            head = attention_ref(q[:, :E], k[:, :E], v[:, :E], **kw)
+            pairs = [(got[:, :E], head), (got[:, -E:], plain())]
+            # the plain version cannot take the whole sequence without the
+            # window either: the kernel's own no-window rows stand for it
+            nowin = [K.flash_attention_fwd(q, k, v, causal=True,
+                                           softcap=cap)[:, -E:]]
+            check(not cap, f"flash_attention_fwd {label}: a softcap case "
+                           f"past FLASH_PLAIN_MAX_S has no no-softcap check")
+            nocap = []
+            plain_note = (f"first and last {E} rows; plain_ms times the "
+                          f"last {E} rows from the last {L} positions")
+        tol = FLASH_TOL[dname]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+        check(all(torch.allclose(a.float(), b.float(), **tol)
+                  for a, b in pairs),
+              f"flash_attention_fwd {label}: kernel disagrees with "
+              f"attention_ref (max abs err {err})")
+        want = pairs[-1][1].float()
+        check(not torch.allclose(torch.zeros_like(want), want, **tol)
+              and not torch.allclose(-want, want, **tol),
+              f"flash_attention_fwd {label}: the tolerance cannot tell a "
+              f"zero or a sign-flipped output from attention_ref")
+        nowin_err = None
+        if windowed:
+            nw = nowin[0].float()
+            nowin_err = float((nw - want).abs().max())
+            check(not torch.allclose(nw, want, **tol),
+                  f"flash_attention_fwd {label}: the tolerance cannot tell "
+                  f"the output without the window from attention_ref")
+        nocap_err = None
+        if cap:
+            nc = nocap[0].float()
+            nocap_err = float((nc - want).abs().max())
+            check(not torch.allclose(nc, want, **tol),
+                  f"flash_attention_fwd {label}: the tolerance cannot tell "
+                  f"the output without the softcap from attention_ref")
+        out_abs = float(want.abs().mean())
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * k.numel() * k.element_size()
+        flops = 4 * B * Hq * hd * live_pairs(S, window)
+        lib = sdpa_library(torch, q, k, v, window, cap, long)
+        lib_err = lib_note = None
+        if lib is not None:
+            try:
+                lib_out = lib().transpose(1, 2)
+            except RuntimeError as exc:
+                # the yardstick only: no flash or memory-efficient backend
+                # of this PyTorch takes the case, and the math one would
+                # not fit
+                lib, lib_note = None, str(exc).splitlines()[0][:200]
+            else:
+                if long:
+                    lib_out = lib_out[:, -FLASH_EDGE:]
+                lib_err = float((lib_out.float() - want).abs().max())
+                del lib_out
+        row = {"shape": label, "max_abs_err": err, "tol": tol,
+               "zero_err": float(want.abs().max()),
+               "no_window_err": nowin_err, "no_softcap_err": nocap_err,
+               "mean_abs_out": out_abs,
+               "ms": time_ms(torch, lambda: K.flash_attention_fwd(
+                   q, k, v, **kw), launches=3 if long else 20),
+               "plain_ms": time_ms(torch, plain, launches=1, repeats=3,
+                                   warmup=1),
+               "plain_checked": plain_note,
+               "library_ms": None if lib is None else time_ms(
+                   torch, lib, launches=3 if long else 20),
+               "library": None if lib is None else
+               "torch.nn.functional.scaled_dot_product_attention",
+               "library_max_abs_err": lib_err, "library_note": lib_note}
+        row.update(bound_fields(torch, q.dtype, nbytes, flops, row["ms"]))
+        rows.append(row)
+        print(f"kernel flash_attention_fwd {label}: {json.dumps(row)}",
+              flush=True)
+        del q, k, v, got, pairs, nowin, nocap, want, lib
     torch.cuda.empty_cache()
     return rows
 
@@ -838,19 +1103,27 @@ def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
 
 
 # ---------------------------------------------------------------------------
-# phases (f)-(h): mamba2-130m personalized serving, prefill, card vs CPU
+# phases (f)-(k): personalized LM serving, prefill, card vs CPU -- (f)-(h)
+# mamba2-130m, (i)-(k) zamba2-1.2b
 # ---------------------------------------------------------------------------
 
-MAMBA2_PARAMS = 167_598_528      # 12 leaves, the published width
+# the published widths: params and leaves of the reference's init
+LM_PARAMS = {"mamba2-130m": (167_598_528, 12),
+             "zamba2-1.2b": (1_183_058_816, 21)}
 # the serve driver's mode C: lambda 30, alpha 0.01, K 5, eta_in 0.01
 LM_USERS, LM_TOKENS, LM_INNER_STEPS, LM_PROMPT = 4, 16, 5, 8
-# prefill shapes of phase (g), (B, S): the kernel cases' long ones
+# zamba2's personal subset: the shared attention+MLP block and the
+# unembedding (145,233,920 params a user); the full model's per-user copies
+# would not fit 4 users in 80 GB
+ZAMBA_SUBSET = "shared,embed/unembed"
+# prefill shapes of phases (g) and (j), (B, S): the kernel cases' long ones
 PREFILL_SHAPES = ((8, 4096), (1, 32768))
-# phase (h): card against CPU at 2 layers, f32, TF32 off.  The card runs the
+# phases (h) and (k): card against CPU, f32, TF32 off.  The card runs the
 # scan through ssd_fwd and the CPU through ssd_chunked (einsums), which sum
 # the chunk products in other orders (ssd_fwd vs ssd_ref differ by up to
-# 4.4e-4 at |y| ~ 25 in phase 2, 1.2e-5 relative), and cuBLAS and the
-# CPU's GEMMs sum the projections and the 768-term unembedding differently:
+# 4.4e-4 at |y| ~ 25 in phase 2, 1.2e-5 relative); flash_attention_fwd and
+# attention_ref sum q.k and p.v in other orders (2e-5 in f32); and cuBLAS
+# and the CPU's GEMMs sum the projections and the unembedding differently:
 # about 1e-5 relative on logits of order 1, hence 1e-4.  Heads are the
 # global params minus 5 prox steps of eta_in = 0.01 on gradients that differ
 # that little: 1e-5.
@@ -858,17 +1131,24 @@ LM_PREFILL_TOL = dict(atol=1e-4, rtol=1e-4)
 LM_HEAD_TOL = dict(atol=1e-5, rtol=0.0)
 
 
-def mamba2_leaf_shapes():
-    """mamba2-130m's 12 leaf shapes in tree order, from the config alone."""
+def lm_leaf_shapes(arch):
+    """An LM's leaf shapes in tree order, from the config alone."""
     from repro_torch.configs import get_config
     from repro_torch.models import mamba2 as m2
-    cfg = get_config("mamba2-130m")
+    cfg = get_config(arch)
     s, d, L, V = cfg.ssm, cfg.d_model, cfg.n_layers, cfg.vocab
     d_in, nh, conv = m2.dims(cfg)
     proj = 2 * d_in + 2 * s.n_groups * s.state_dim + nh
-    return [(V, d), (d, V), (d,), (L, d), (L, nh), (L, conv),
-            (L, s.conv_width, conv), (L, nh), (L, nh), (L, d_in),
-            (L, d, proj), (L, d_in, d)]
+    shapes = [(V, d), (d, V), (d,), (L, d), (L, nh), (L, conv),
+              (L, s.conv_width, conv), (L, nh), (L, nh), (L, d_in),
+              (L, d, proj), (L, d_in, d)]
+    if cfg.attn_every:
+        hq = cfg.n_heads * cfg.resolved_head_dim
+        hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+        shapes += [(2 * d, hkv), (hq, d), (2 * d, hq), (2 * d, hkv),
+                   (2 * d,), (d,), (cfg.d_ff, d), (d, cfg.d_ff),
+                   (d, cfg.d_ff)]
+    return shapes
 
 
 def _stack_batches(torch, batches):
@@ -876,59 +1156,87 @@ def _stack_batches(torch, batches):
             for k in batches[0]}
 
 
-def lm_serving_phase(torch):
-    """(f): ``repro_torch.launch.serve.main`` on the card at full width,
-    mamba2-130m, 4 users, mode C, fp32 and int8 banking; then one
-    ``advance_window()`` per server.  Counts are zeroed just before each
-    run.  Returns per-codec numbers and the (int8 run's) config and
-    params."""
-    from torch.func import vmap
-
+def _reset_lm_launches():
+    from repro_torch.kernels.flash_attention import kernel as KF
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.ssd import kernel as KS
+    for mod in (K, KS, KF):
+        mod.reset_launches()
+
+
+def _lm_launches():
+    from repro_torch.kernels.flash_attention import kernel as KF
+    from repro_torch.kernels.ssd import kernel as KS
+    return (KS.LAUNCHES["ssd_fwd"], KF.LAUNCHES["flash_attention_fwd"])
+
+
+def lm_serving_phase(torch, arch, label, subset=None):
+    """(f) / (i): ``repro_torch.launch.serve.main`` on the card at full
+    width, 4 users, mode C, fp32 and int8 banking, with ``subset`` as
+    ``--personal-subset``; then one ``advance_window()`` per server.  Counts
+    are zeroed just before each run.  Returns per-codec numbers and the
+    (int8 run's) config and params."""
+    from torch.func import vmap
+
+    from repro_torch.core.subset import merge_subset
+    from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.launch import serve
-    from repro_torch.models import api
-    from repro_torch.tree import tree_leaves
+    from repro_torch.models import api, ssm_lm
+    from repro_torch.tree import tree_leaves, tree_map
+    n_params_want, n_leaves_want = LM_PARAMS[arch]
     out, keep = {}, None
     for codec in ("fp32", "int8"):
-        argv = ["--arch", "mamba2-130m", "--personalize", "--requests",
+        argv = ["--arch", arch, "--personalize", "--requests",
                 str(LM_USERS), "--tokens", str(LM_TOKENS), "--prompt-len",
                 str(LM_PROMPT), "--inner-steps",
                 str(LM_INNER_STEPS), "--device", "cuda",
                 "--delta-dtype", codec, "--out",
                 str(ROOT / "build" / "serve")]
-        KS.reset_launches()
-        K.reset_launches()
+        if subset:
+            argv += ["--personal-subset", subset]
+        _reset_lm_launches()
         t0 = time.perf_counter()
         run = serve.main(argv)
         main_wall = time.perf_counter() - t0
+        # read before the loss checks below, which launch the kernels too
+        ssd_launches, flash_launches = _lm_launches()
         cfg, srv = run.cfg, run.server
+        spec = srv.personal_subset
         leaves = tree_leaves(run.params)
         n_params = sum(x.numel() for x in leaves)
-        check(n_params == MAMBA2_PARAMS and len(leaves) == 12,
-              f"(f) {codec}: {n_params} params in {len(leaves)} leaves")
-        check([tuple(x.shape) for x in leaves] == mamba2_leaf_shapes(),
-              f"(f) {codec}: leaf shapes differ from the config's")
+        check(n_params == n_params_want and len(leaves) == n_leaves_want,
+              f"{label} {codec}: {n_params} params in {len(leaves)} leaves")
+        check([tuple(x.shape) for x in leaves] == lm_leaf_shapes(arch),
+              f"{label} {codec}: leaf shapes differ from the config's")
         check(all(bool(torch.isfinite(x).all())
                   for x in tree_leaves(run.heads)),
-              f"(f) {codec}: personalized heads not finite")
+              f"{label} {codec}: personalized heads not finite")
         check(tuple(run.out_tokens.shape) == (LM_USERS, LM_TOKENS),
-              f"(f) {codec}: decoded {tuple(run.out_tokens.shape)}")
+              f"{label} {codec}: decoded {tuple(run.out_tokens.shape)}")
         # every user's head against the global params on their own stream,
-        # one vmapped forward each
+        # one vmapped forward each; a subset head goes over the shared
+        # backbone with in_dims None on the backbone's leaves
         batch = _stack_batches(torch, run.batches)
         loss = lambda p, b: api.loss_fn(cfg, p, b)  # noqa: E731
+        if spec is not None:
+            heads = merge_subset(run.params, run.heads)
+            p_axes = tree_map(lambda m: 0 if m else None,
+                              spec.mask(run.params))
+        else:
+            heads, p_axes = run.heads, 0
         with torch.no_grad():
-            head_loss = vmap(loss)(run.heads, batch).cpu()
+            head_loss = vmap(loss, in_dims=(p_axes, 0))(heads, batch).cpu()
             glob_loss = vmap(loss, in_dims=(None, 0))(run.params,
                                                      batch).cpu()
+        del heads
         st = srv.stats
-        ssd_launches = KS.LAUNCHES["ssd_fwd"]
-        # K prox steps and nu's gradient per mode-C cohort call, and the two
-        # loss checks above
-        evals = (LM_INNER_STEPS + 1) * st["cohort_calls"] + 2
-        expect = cfg.n_layers * evals
-        # the window apply: one launch per leaf of the one bank
+        # K prox steps and nu's gradient per mode-C cohort call
+        evals = (LM_INNER_STEPS + 1) * st["cohort_calls"]
+        expect = {"ssd_fwd": cfg.n_layers * evals,
+                  "flash_attention_fwd": ssm_lm.n_shared_slots(cfg) * evals}
+        # the window apply: one launch per personal leaf of the one bank
+        n_personal = len(tree_leaves(spec.extract(run.params))) \
+            if spec is not None else len(leaves)
         kern = "apply_rows_q" if codec == "int8" else "apply_rows"
         K.reset_launches()
         torch.cuda.synchronize()
@@ -938,7 +1246,10 @@ def lm_serving_phase(torch):
         apply_wall = time.perf_counter() - t0
         apply_launches = K.LAUNCHES[kern]
         row = {
+            "arch": arch, "personal_subset": subset,
             "params": n_params, "bytes_per_f32_copy": 4 * n_params,
+            "personal_params": sum(x.numel() for x in tree_leaves(
+                spec.extract(run.params))) if spec is not None else n_params,
             "main_wall_s": main_wall,
             "personalize_flush_s": run.personalize_s,
             "decode_s": run.decode_s,
@@ -951,26 +1262,30 @@ def lm_serving_phase(torch):
             "cohort_calls": st["cohort_calls"],
             "window_apply_s": apply_wall, "window_apply_kernel": kern,
             "window_apply_launches": apply_launches,
-            "ssd_fwd_launches": ssd_launches, "ssd_fwd_expected": expect,
+            "ssd_fwd_launches": ssd_launches,
+            "flash_attention_fwd_launches": flash_launches,
+            "expected_launches": expect, "loss_evaluations": evals,
             "head_loss": head_loss.tolist(),
             "global_loss": glob_loss.tolist()}
         out[codec] = row
-        print(f"(f) mamba2-130m serving {codec}: {json.dumps(row)}",
+        print(f"{label} {arch} serving {codec}: {json.dumps(row)}",
               flush=True)
         check(st["host_materializations"] == 0,
-              f"(f) {codec}: {st['host_materializations']} host "
+              f"{label} {codec}: {st['host_materializations']} host "
               f"materializations")
-        check(ssd_launches == expect,
-              f"(f) {codec}: ssd_fwd launched {ssd_launches} times, expected "
-              f"{cfg.n_layers} x {evals} = {expect}")
+        check(ssd_launches == expect["ssd_fwd"]
+              and flash_launches == expect["flash_attention_fwd"],
+              f"{label} {codec}: ssd_fwd launched {ssd_launches} and "
+              f"flash_attention_fwd {flash_launches} times, expected "
+              f"{expect} ({evals} forward evaluations)")
         check(bool((head_loss < glob_loss).all()),
-              f"(f) {codec}: a personalized loss is not below the global "
-              f"loss: {head_loss.tolist()} vs {glob_loss.tolist()}")
-        check(apply_launches == len(leaves),
-              f"(f) {codec}: window apply launched {kern} {apply_launches} "
-              f"times, expected {len(leaves)}")
-        check(finite(torch, srv.params), f"(f) {codec}: params not finite "
-                                         f"after the window apply")
+              f"{label} {codec}: a personalized loss is not below the "
+              f"global loss: {head_loss.tolist()} vs {glob_loss.tolist()}")
+        check(apply_launches == n_personal,
+              f"{label} {codec}: window apply launched {kern} "
+              f"{apply_launches} times, expected {n_personal}")
+        check(finite(torch, srv.params), f"{label} {codec}: params not "
+                                         f"finite after the window apply")
         if codec == "int8":
             # where the serving path's time goes: a second cohort call of
             # the same 4 users, and a short personalized decode
@@ -981,23 +1296,28 @@ def lm_serving_phase(torch):
             row["profile_flush"] = profile_shares(torch, again)
             row["profile_decode_4_tokens"] = profile_shares(
                 torch, lambda: serve._decode_personalized(
-                    cfg, run.heads, run.prompt, LM_PROMPT + 4, LM_PROMPT))
-            print(f"(f) profiles, int8 server: flush "
+                    cfg, run.heads, run.prompt, LM_PROMPT + 4, LM_PROMPT,
+                    params=run.params, spec=spec))
+            print(f"{label} profiles, int8 server: flush "
                   f"{json.dumps(row['profile_flush'])}; decode "
                   f"{json.dumps(row['profile_decode_4_tokens'])}",
                   flush=True)
         keep = (cfg, run.params)
         del run, srv, batch
         torch.cuda.empty_cache()
-    check(out["fp32"]["ring_bytes_per_user"]
-          >= RING_RATIO * out["int8"]["ring_bytes_per_user"],
-          "(f): int8 ring bytes per user not RING_RATIO below fp32")
+    bpu = {k: out[k]["ring_bytes_per_user"] for k in out}
+    print(f"{label} {arch} ring_bytes_per_user fp32 {bpu['fp32']} int8 "
+          f"{bpu['int8']} ratio {bpu['fp32'] / bpu['int8']:.4f}",
+          flush=True)
+    check(bpu["fp32"] >= RING_RATIO * bpu["int8"],
+          f"{label}: int8 ring bytes per user not RING_RATIO below fp32")
     return out, keep
 
 
 def profile_shares(torch, fn):
-    """Wall, device busy time, and device time in ssd_fwd, in GEMMs and in
-    everything else, of one ``fn()`` under ``torch.profiler``."""
+    """Wall, device busy time, and device time in ssd_fwd, in
+    flash_attention_fwd, in GEMMs and in everything else, of one ``fn()``
+    under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1006,7 +1326,8 @@ def profile_shares(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    sums = {"ssd_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    sums = {"ssd_fwd": 0.0, "flash_attention_fwd": 0.0, "gemm": 0.0,
+            "other": 0.0}
     by_name = {}
     n = 0
     for e in prof.events():
@@ -1015,9 +1336,10 @@ def profile_shares(torch, fn):
         n += 1
         name = e.name.lower()
         # cuBLAS names its Hopper GEMMs nvjet_*, its older ones *gemm*/xmma
-        key = "ssd_fwd" if "ssd_fwd" in name else "gemm" if any(
-            w in name for w in ("gemm", "xmma", "cutlass", "nvjet")) \
-            else "other"
+        key = "ssd_fwd" if "ssd_fwd" in name else \
+            "flash_attention_fwd" if "flash_attention_fwd" in name else \
+            "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet")) else "other"
         ms = e.time_range.elapsed_us() / 1e3
         sums[key] += ms
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
@@ -1031,14 +1353,16 @@ def profile_shares(torch, fn):
             "top_ms": [(k, round(v, 3)) for k, v in top]}
 
 
-def prefill_phase(torch, cfg, params):
-    """(g): ``make_prefill_step`` at full width, bf16 activations, at
-    PREFILL_SHAPES: wall per call (3 calls after a warm-up), ssd_fwd
-    launches (24 per call), and one call under the profiler."""
-    from repro_torch.kernels.ssd import kernel as KS
+def prefill_phase(torch, cfg, params, label):
+    """(g) / (j): ``make_prefill_step`` at full width, bf16 activations, at
+    PREFILL_SHAPES: wall per call (3 calls after a warm-up), ssd_fwd and
+    flash_attention_fwd launches (one per layer and one per shared
+    invocation, each call), and one call under the profiler."""
     from repro_torch.launch import steps
+    from repro_torch.models import ssm_lm
     step = steps.make_prefill_step(cfg)
     g = torch.Generator(device="cuda").manual_seed(2)
+    per_call = (cfg.n_layers, ssm_lm.n_shared_slots(cfg))
     out = {}
     for B, S in PREFILL_SHAPES:
         batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
@@ -1048,37 +1372,39 @@ def prefill_phase(torch, cfg, params):
             torch.cuda.synchronize()
             check(tuple(logits.shape) == (B, cfg.vocab)
                   and bool(torch.isfinite(logits).all()),
-                  f"(g) prefill ({B}, {S}): logits {tuple(logits.shape)} "
-                  f"not finite or misshapen")
-            KS.reset_launches()
+                  f"{label} prefill ({B}, {S}): logits "
+                  f"{tuple(logits.shape)} not finite or misshapen")
+            _reset_lm_launches()
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 step(params, batch)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            launches = KS.LAUNCHES["ssd_fwd"]
-            check(launches == 3 * cfg.n_layers,
-                  f"(g) prefill ({B}, {S}): ssd_fwd launched {launches} "
-                  f"times in 3 calls")
+            launches = _lm_launches()
+            check(launches == (3 * per_call[0], 3 * per_call[1]),
+                  f"{label} prefill ({B}, {S}): ssd_fwd and "
+                  f"flash_attention_fwd launched {launches} times in 3 "
+                  f"calls, expected 3 x {per_call}")
             prof = profile_shares(torch, lambda: step(params, batch))
         row = {"wall_ms": [w * 1e3 for w in walls],
                "wall_ms_median": statistics.median(walls) * 1e3,
                "tokens_per_s": B * S / statistics.median(walls),
-               "ssd_fwd_launches_per_call": launches // 3,
+               "ssd_fwd_launches_per_call": launches[0] // 3,
+               "flash_attention_fwd_launches_per_call": launches[1] // 3,
                "profile": prof}
         out[f"{B}x{S}"] = row
-        print(f"(g) prefill (B, S) = ({B}, {S}) bf16: {json.dumps(row)}",
-              flush=True)
+        print(f"{label} {cfg.arch_id} prefill (B, S) = ({B}, {S}) bf16: "
+              f"{json.dumps(row)}", flush=True)
         del batch, logits
         torch.cuda.empty_cache()
     return out
 
 
-def lm_cpu_parity(torch):
-    """(h): the same weights at full width but 2 layers, f32, on the card
-    and on the CPU: prefill_logits, and the heads of one mode-C flush of 2
-    users."""
+def lm_cpu_parity(torch, arch, n_layers, label, subset=None):
+    """(h) / (k): ``arch`` at full width but ``n_layers`` layers, f32, on
+    the card and on the CPU: prefill_logits, and the heads of one mode-C
+    flush of 2 users (``subset`` personalized, else the whole model)."""
     from repro_torch.configs import get_config
     from repro_torch.core import PersAFLConfig
     from repro_torch.data import synthetic_token_batch
@@ -1086,21 +1412,23 @@ def lm_cpu_parity(torch):
     from repro_torch.models import api
     from repro_torch.serving import PersonalizationServer
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
     p_cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
     tokens = synthetic_token_batch(5, 2, 256, cfg.vocab)["tokens"]
+    _reset_lm_launches()
     with torch.no_grad():
         lg = api.prefill_logits(cfg, p_gpu, {"tokens": torch.from_numpy(
             tokens).cuda()}).cpu()
+        launches = _lm_launches()
         lc = api.prefill_logits(cfg, p_cpu, {"tokens": torch.from_numpy(
             tokens)})
     diff = float((lg - lc).abs().max())
     check(torch.allclose(lg, lc, **LM_PREFILL_TOL)
           and not torch.allclose(torch.zeros_like(lc), lc, **LM_PREFILL_TOL)
           and not torch.allclose(-lc, lc, **LM_PREFILL_TOL),
-          f"(h) prefill logits card vs CPU differ by {diff} (tol "
+          f"{label} prefill logits card vs CPU differ by {diff} (tol "
           f"{LM_PREFILL_TOL})")
     pcfg = PersAFLConfig(option="C", lam=30.0, alpha=0.01, inner_steps=5,
                          inner_eta=0.01)
@@ -1109,7 +1437,7 @@ def lm_cpu_parity(torch):
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         srv = PersonalizationServer(
             params, lambda p, b: api.loss_fn(cfg, p, b), pcfg, modes=("C",),
-            max_pending=2, device=dev)
+            max_pending=2, device=dev, personal_subset=subset)
         t0 = time.perf_counter()
         for u, b in enumerate(batches):
             srv.submit(f"user{u}", b)
@@ -1117,21 +1445,133 @@ def lm_cpu_parity(torch):
         heads[dev] = [x.cpu() for x in tree_leaves(
             srv.stacked_heads(["user0", "user1"]))]
         walls[dev] = time.perf_counter() - t0
+        base = srv.personal_subset.extract(p_cpu) \
+            if srv.personal_subset is not None else p_cpu
     hdiff = max(float((a - b).abs().max())
                 for a, b in zip(heads["cuda"], heads["cpu"]))
     moved = max(float((h - p[None]).abs().max())
-                for h, p in zip(heads["cpu"], tree_leaves(p_cpu)))
-    print(f"(h) card vs CPU, mamba2-130m at 2 layers f32: prefill logits "
-          f"max |diff| {diff:.3e} (tol {LM_PREFILL_TOL}); heads of a mode-C "
+                for h, p in zip(heads["cpu"], tree_leaves(base)))
+    print(f"{label} card vs CPU, {arch} at {n_layers} layers f32"
+          f"{' subset ' + subset if subset else ''}: prefill logits max "
+          f"|diff| {diff:.3e} (tol {LM_PREFILL_TOL}; card launches "
+          f"ssd_fwd/flash_attention_fwd {launches}); heads of a mode-C "
           f"flush of 2 users max |diff| {hdiff:.3e} (tol {LM_HEAD_TOL}), "
           f"heads moved {moved:.3e}; flush wall card {walls['cuda']:.3f} s "
           f"cpu {walls['cpu']:.3f} s", flush=True)
+    from repro_torch.models import ssm_lm
+    check(launches == (n_layers, ssm_lm.n_shared_slots(cfg)),
+          f"{label}: the card's prefill launched ssd_fwd and "
+          f"flash_attention_fwd {launches} times")
     check(all(torch.allclose(a, b, **LM_HEAD_TOL)
               for a, b in zip(heads["cuda"], heads["cpu"])),
-          f"(h) heads card vs CPU differ by {hdiff}")
+          f"{label} heads card vs CPU differ by {hdiff}")
     check(moved > 10 * LM_HEAD_TOL["atol"],
-          f"(h) heads moved only {moved}: the check cannot see a no-op")
-    return {"prefill_diff": diff, "head_diff": hdiff, "moved": moved}
+          f"{label} heads moved only {moved}: the check cannot see a no-op")
+    return {"prefill_diff": diff, "head_diff": hdiff, "moved": moved,
+            "launches": launches}
+
+
+def run_phases(torch):
+    """Every phase in order, on the card; returns the card's line and
+    the ``kernels`` list.  Raises SmokeFailure at the first failed
+    check."""
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    paths = _build.build_all(KERNEL_LIBS)
+    print(f"build ({len(paths)} nvcc in parallel): "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"{[p.name for p in paths]}", flush=True)
+    for path in paths:
+        log = path.with_suffix(".log")
+        if log.is_file():
+            print(log.read_text().strip(), flush=True)
+
+    setup = fig2_setup(torch)
+    from repro_torch.tree import tree_leaves
+    cnn_shapes = [tuple(x.shape) for x in tree_leaves(setup[1])]
+    zshapes = lm_leaf_shapes("zamba2-1.2b")
+    # zamba2's personal subset: embed/unembed and the 9 shared leaves
+    results = kernel_phase(torch, cnn_shapes, (
+        ("mamba2-130m 12 leaves", lm_leaf_shapes("mamba2-130m")),
+        ("zamba2-1.2b shared,embed/unembed 10 leaves",
+         [zshapes[1]] + zshapes[12:])))
+    results["ssd_fwd"] = ssd_kernel_phase(torch)
+    results["flash_attention_fwd"] = flash_kernel_phase(torch)
+    imm_ms = immediate_apply_ms(torch, setup[1])
+    print(f"immediate apply as the main path runs it (H2D copy of one "
+          f"host row + {len(cnn_shapes)} launches): {imm_ms:.4f} ms",
+          flush=True)
+
+    launches, hists = main_path(torch, setup)
+    profile_training(torch, setup)
+    cpu_parity(torch, setup, hists)
+    serve_launches, _ = serving_phase(torch, setup)
+    lm, (lm_cfg, lm_params) = lm_serving_phase(torch, "mamba2-130m",
+                                               "(f)")
+    prefill = prefill_phase(torch, lm_cfg, lm_params, "(g)")
+    del lm_params
+    torch.cuda.empty_cache()
+    lm_cpu_parity(torch, "mamba2-130m", 2, "(h)")
+    zl, (z_cfg, z_params) = lm_serving_phase(torch, "zamba2-1.2b", "(i)",
+                                             subset=ZAMBA_SUBSET)
+    zprefill = prefill_phase(torch, z_cfg, z_params, "(j)")
+    del z_params
+    torch.cuda.empty_cache()
+    lm_cpu_parity(torch, "zamba2-1.2b", 6, "(k)", subset=ZAMBA_SUBSET)
+
+    kernels = []
+    main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
+                   "flash_attention_fwd": FLASH_MAIN_SHAPE}
+    for name, rows in results.items():
+        # the main path's shape comes first: the CNN's leaves for the
+        # server-apply kernels, the (f) cohort (4 users x 128 tokens, bf16
+        # activations) for ssd_fwd, the (i) cohort for flash_attention_fwd
+        main = rows[0] if name not in main_shapes else next(
+            r for r in rows if r["shape"] == main_shapes[name])
+        if name == "ssd_fwd":
+            # serving phase (f) is ssd_fwd's main path
+            n = lm["fp32"]["ssd_fwd_launches"]
+        elif name == "flash_attention_fwd":
+            # serving phase (i) is flash_attention_fwd's main path
+            n = zl["fp32"]["flash_attention_fwd_launches"]
+        else:
+            # apply_rows_q runs on the serving path (e) only; the others'
+            # counts are those of training runs (a)-(d)
+            n = launches.get(name, serve_launches.get(name))
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": n,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"], "shapes": rows}
+        if name == "ssd_fwd":
+            entry["launches_int8"] = lm["int8"]["ssd_fwd_launches"]
+            entry["launches_zamba2"] = {
+                k: v["ssd_fwd_launches"] for k, v in zl.items()}
+            entry["launches_prefill_per_call"] = {
+                k: v["ssd_fwd_launches_per_call"] for k, v in prefill.items()}
+            entry["launches_zamba2_prefill_per_call"] = {
+                k: v["ssd_fwd_launches_per_call"]
+                for k, v in zprefill.items()}
+        elif name == "flash_attention_fwd":
+            entry["launches_int8"] = zl["int8"]["flash_attention_fwd_launches"]
+            entry["launches_prefill_per_call"] = {
+                k: v["flash_attention_fwd_launches_per_call"]
+                for k, v in zprefill.items()}
+        else:
+            entry["launches_serving"] = serve_launches.get(name, 0)
+            entry["launches_lm_window_apply"] = {
+                label: sum(v["window_apply_launches"] for v in runs.values()
+                           if v["window_apply_kernel"] == name)
+                for label, runs in (("(f)", lm), ("(i)", zl))}
+        kernels.append(entry)
+    kernels[0]["immediate_apply_ms"] = imm_ms
+    return card, kernels
 
 
 def main() -> int:
@@ -1152,77 +1592,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
     try:
-        from repro_torch.kernels import _build
-        t0 = time.perf_counter()
-        paths = _build.build_all(KERNEL_LIBS)
-        print(f"build ({len(paths)} nvcc in parallel): "
-              f"{time.perf_counter() - t0:.2f} s "
-              f"{[p.name for p in paths]}", flush=True)
-        for path in paths:
-            log = path.with_suffix(".log")
-            if log.is_file():
-                print(log.read_text().strip(), flush=True)
-
-        setup = fig2_setup(torch)
-        from repro_torch.tree import tree_leaves
-        cnn_shapes = [tuple(x.shape) for x in tree_leaves(setup[1])]
-        results = kernel_phase(torch, cnn_shapes, mamba2_leaf_shapes())
-        results["ssd_fwd"] = ssd_kernel_phase(torch)
-        imm_ms = immediate_apply_ms(torch, setup[1])
-        print(f"immediate apply as the main path runs it (H2D copy of one "
-              f"host row + {len(cnn_shapes)} launches): {imm_ms:.4f} ms",
-              flush=True)
-
-        launches, hists = main_path(torch, setup)
-        profile_training(torch, setup)
-        cpu_parity(torch, setup, hists)
-        serve_launches, _ = serving_phase(torch, setup)
-        lm, (lm_cfg, lm_params) = lm_serving_phase(torch)
-        prefill = prefill_phase(torch, lm_cfg, lm_params)
-        del lm_params
-        torch.cuda.empty_cache()
-        lm_cpu_parity(torch)
+        card, kernels = run_phases(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    kernels = []
-    for name, rows in results.items():
-        # the main path's shape comes first: the CNN's leaves for the
-        # server-apply kernels, the (f) cohort (4 users x 128 tokens, bf16
-        # activations) for ssd_fwd
-        main = rows[0] if name != "ssd_fwd" else next(
-            r for r in rows if r["shape"] == SSD_MAIN_SHAPE)
-        if name == "ssd_fwd":
-            # the main path of this slice is serving phase (f)
-            n = lm["fp32"]["ssd_fwd_launches"]
-        else:
-            # apply_rows_q runs on the serving path (e) only; the others'
-            # counts are those of training runs (a)-(d)
-            n = launches.get(name, serve_launches.get(name))
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": n,
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "shapes": rows}
-        if name == "ssd_fwd":
-            entry["launches_int8"] = lm["int8"]["ssd_fwd_launches"]
-            entry["launches_prefill_per_call"] = {
-                k: v["ssd_fwd_launches_per_call"] for k, v in prefill.items()}
-        else:
-            entry["launches_serving"] = serve_launches.get(name, 0)
-            entry["launches_lm_window_apply"] = sum(
-                v["window_apply_launches"] for v in lm.values()
-                if v["window_apply_kernel"] == name)
-        kernels.append(entry)
-    kernels[0]["immediate_apply_ms"] = imm_ms
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``, as in
 ``src/repro/configs/__init__.py``.
 
-The registry holds the architectures the port runs (so far ``mamba2-130m``);
+The registry holds the architectures the port runs (so far ``mamba2-130m``
+and the hybrid ``zamba2-1.2b``);
 the paper's CNNs live in :mod:`repro_torch.configs.paper_models`.  The
 reference's other architectures raise ``NotImplementedError`` naming the
 ROADMAP item that brings their family, and an id neither package knows
@@ -15,18 +16,18 @@ from repro_torch.configs.base import (ArchConfig, InputShape,  # noqa: F401
                                       INPUT_SHAPES, get_shape,
                                       reduce_for_smoke)
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
-_REGISTRY: Dict[str, ArchConfig] = {c.arch_id: c for c in (_mamba2,)}
+_REGISTRY: Dict[str, ArchConfig] = {c.arch_id: c for c in (_mamba2,
+                                                           _zamba2)}
 
-_ATTN = ("ROADMAP.md Queue 1 item 3: the attention slice "
-         "(models/attention.py, models/lm.py)")
+_ATTN = ("ROADMAP.md Queue 1 item 3: the dense slice (models/lm.py)")
 # the reference's other architectures, by the family slice that brings them
 _NOT_PORTED: Dict[str, str] = {
     "codeqwen1.5-7b": _ATTN,
     "gemma2-2b": _ATTN,
     "minitron-8b": _ATTN,
     "qwen1.5-110b": _ATTN,
-    "zamba2-1.2b": _ATTN + " (the hybrid's shared attention block)",
     "deepseek-v3-671b": "ROADMAP.md Queue 1 item 3: the moe slice "
                         "(models/moe.py, MLA attention)",
     "granite-moe-1b-a400m": "ROADMAP.md Queue 1 item 3: the moe slice "

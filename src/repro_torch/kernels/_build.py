@@ -1,7 +1,8 @@
 """Builds the port's CUDA C++ kernels with ``nvcc`` and loads them with ctypes.
 
 A library ``<name>`` is the one source ``csrc/<name>.cu`` (``fused_update``,
-``ssd``), with a plain C interface, compiled for Hopper::
+``ssd``, ``flash_attention``), with a plain C interface, compiled for
+Hopper::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so ...

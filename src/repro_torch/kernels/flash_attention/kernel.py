@@ -1,0 +1,135 @@
+"""Hopper kernel for forward flash attention, bound through ctypes.
+
+:func:`flash_attention_fwd` replaces the TPU kernel
+``src/repro/kernels/flash_attention/kernel.py:69`` (``flash_attention_fwd``,
+body ``_flash_kernel`` at ``:24``).  Every full-sequence causal
+self-attention on the card runs it once
+(``repro_torch.models.attention.attn_forward`` through its
+``FlashAttention`` autograd Function): zamba2's shared block launches it
+once per invocation and forward evaluation.  It is CUDA C++ for ``sm_90a``
+in ``repro_torch/csrc/flash_attention.cu``, built by
+:mod:`repro_torch.kernels._build` at first use; the source note says what
+bounds it (operations, at the f32 peak of the CUDA cores) and what the
+design does about it.
+
+The wrapper checks its inputs and raises on anything the kernel does not
+take: a tensor off the card, q/k/v not all f32 or all bf16, shapes other
+than q (B,S,Hq,hd) and k, v (B,S,Hkv,hd) with Hq a multiple of Hkv, hd not
+64, 128 or 256, a non-contiguous layout, a negative window or softcap, and
+``causal=False``: the port runs every non-causal mask in plain PyTorch
+(``models/attention.py``), so the kernel walks the causal cone only.  It
+allocates the output (q's dtype) with ``torch.empty``, launches on
+PyTorch's current stream, raises if the launch reports a CUDA error (a
+refused shared-memory size included), and counts the launch in
+:data:`LAUNCHES`.  There is no fallback: the plain version in ``ref.py`` is
+for CPU tensors, picked by ``ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches since the last reset_launches(); bumped only where the kernel is
+# launched
+LAUNCHES = {"flash_attention_fwd": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+TILE = 64                      # query rows per block, key rows per tile
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
+                                        i32, ctypes.c_float, i32, p]
+    lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_error_string.argtypes = [i32]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(arg: str, t: torch.Tensor, device=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"flash_attention_fwd: {arg} must be a "
+                        f"torch.Tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: {arg} is on {t.device}; the "
+                         f"kernel takes CUDA tensors only (ops.py picks the "
+                         f"plain version for CPU tensors)")
+    if device is not None and t.device != device:
+        raise ValueError(f"flash_attention_fwd: {arg} is on {t.device}, "
+                         f"expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"flash_attention_fwd: {arg} must be contiguous")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """q: (B,S,Hq,hd); k,v: (B,S,Hkv,hd) -> (B,S,Hq,hd) in q's dtype; one
+    kernel launch.  q, k and v are f32 or bf16, all three alike; query row
+    i sees key j iff j <= i and i - window < j (``window`` > 0);
+    ``causal`` must be True (it is there for ``ops.flash_attention``'s
+    signature); ``softcap`` > 0 caps the logits as cap·tanh(x/cap) before
+    the mask."""
+    if not causal:
+        raise ValueError("flash_attention_fwd: the kernel computes causal "
+                         "attention only; the plain attention_ref takes "
+                         "causal=False")
+    _check("q", q)
+    dev = q.device
+    _check("k", k, dev)
+    _check("v", v, dev)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention_fwd: q must be (B,S,Hq,hd) and "
+                         f"k (B,S,Hkv,hd), got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if tuple(k.shape) != (B, S, Hkv, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention_fwd: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must both be ({B}, {S}, Hkv, "
+                         f"{hd})")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention_fwd: Hq = {Hq} is not a multiple "
+                         f"of Hkv = {Hkv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head_dim {hd} must be one of "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_fwd: q, k and v must all be "
+                        f"float32 or all bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"flash_attention_fwd: window {window} and softcap "
+                         f"{softcap} must be >= 0")
+    if B > 65535 or Hq > 65535 or S > 2 ** 31 - TILE:
+        raise ValueError(f"flash_attention_fwd: B = {B} and Hq = {Hq} must "
+                         f"be at most 65535 (grid limits), S = {S} below "
+                         f"2^31")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib().flash_attention_fwd(
+            out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S,
+            Hq, Hkv, hd, int(window), float(softcap),
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        msg = _lib().flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_fwd: kernel launch failed with "
+                           f"CUDA error {err} ({msg})")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out

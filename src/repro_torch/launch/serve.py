@@ -117,9 +117,19 @@ def _decode_personalized(cfg, heads, prompt, max_len, prompt_len,
     one = api.init_cache(cfg, params, {"tokens": prompt[:1, :1]}, max_len,
                          cfg.activation_dtype)
     cache = tree_map(lambda x: x[None].repeat((U,) + (1,) * x.dim()), one)
-    prefill = vmap(make_prefill(cfg), in_dims=(p_axes, 0, 0))
-    step = vmap(lambda p, c, t, pos: api.decode_step(cfg, p, c, t, pos),
-                in_dims=(p_axes, 0, 0, None))
+    # the user axis on every cache tensor; an empty entry (the hybrid's
+    # ``emb0: None``) is passed through, in and out.  vmap pairs axes with
+    # dict entries in insertion order, so the caches it returns are rebuilt
+    # by tree_map, in the sorted order the axes have.
+    c_axes = tree_map(lambda _: 0, cache)
+    prefill = vmap(lambda p, c, t: tree_map(lambda x: x, make_prefill(cfg)(
+        p, c, t)), in_dims=(p_axes, c_axes, 0), out_dims=c_axes)
+
+    def one_step(p, c, t, pos):
+        logits, c = api.decode_step(cfg, p, c, t, pos)
+        return logits, tree_map(lambda x: x, c)
+    step = vmap(one_step, in_dims=(p_axes, c_axes, 0, None),
+                out_dims=(0, c_axes))
     cache = prefill(heads, cache, prompt_u)
     tok = prompt_u[:, :, -1:]                          # [U, 1, 1]
     generated = []

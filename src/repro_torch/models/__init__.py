@@ -1,2 +1,2 @@
-"""Models of the port: the paper's CNNs and the pure-SSM language model
-(mamba2-130m), behind ``models.api``."""
+"""Models of the port: the paper's CNNs, and the pure-SSM (mamba2-130m) and
+hybrid (zamba2-1.2b) language models behind ``models.api``."""

@@ -7,7 +7,8 @@ by PersA-FL core, the launch layer and the tests.
     init_cache(cfg, params, batch, ...)    -> decode cache
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
 
-So far the pure-SSM family (mamba2-130m) is ported; the others raise
+So far the pure-SSM family (mamba2-130m) and the hybrid family (zamba2-1.2b)
+are ported, both through :mod:`repro_torch.models.ssm_lm`; the others raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -21,16 +22,15 @@ from repro_torch.models import ssm_lm
 from repro_torch.models.layers import unembed
 
 _ITEMS = {
-    "hybrid": "the attention slice (zamba2's shared attention block)",
-    "dense": "the attention slice (models/attention.py, models/lm.py)",
-    "vlm": "the attention slice (models/lm.py with its vision stub)",
+    "dense": "the dense slice (models/lm.py)",
+    "vlm": "the dense slice (models/lm.py with its vision stub)",
     "moe": "the moe slice (models/moe.py)",
     "audio": "the encdec slice (models/encdec.py)",
 }
 
 
 def _family(cfg: ArchConfig) -> None:
-    if cfg.family == "ssm" and not cfg.is_encdec:
+    if cfg.family in ("ssm", "hybrid") and not cfg.is_encdec:
         return
     item = _ITEMS.get("audio" if cfg.is_encdec else cfg.family,
                       f"its family slice ({cfg.family})")

@@ -1,0 +1,266 @@
+"""Attention, as in ``src/repro/models/attention.py``: GQA, sliding windows,
+logit softcap and QKV bias.
+
+Two execution paths:
+
+  * full-sequence causal self-attention (train / prefill) goes through
+    :class:`FlashAttention`, whose forward is
+    ``kernels.flash_attention.ops.flash_attention`` -- the hand-written CUDA
+    kernel ``flash_attention_fwd`` for CUDA tensors, the plain
+    ``attention_ref`` for CPU tensors;
+  * any other mask (non-causal, cross attention, a per-layer
+    ``local_flag``) and single-token decode against a KV cache run the
+    plain :func:`sdpa`, as the reference computes them outside any kernel.
+
+The one intended difference from the reference: its ``attn_forward`` calls
+the plain ``sdpa`` everywhere (the Pallas kernel is validated on its own),
+while the port runs the kernel when the activations lie on the card.  On
+the CPU both packages compute the same plain attention, so the parity tests
+compare like with like.
+
+Softmax is always computed in f32.  ``cross_attn_decode`` and MLA raise
+``NotImplementedError`` naming the slices that bring them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import apply_rope, dense_init, softcap
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# standard (GQA) attention
+# ---------------------------------------------------------------------------
+
+def init_attn(generator: torch.Generator, cfg: ArchConfig,
+              d_in: Optional[int] = None):
+    """Params on the CPU, drawn from ``generator``; ``d_in`` lets hybrid
+    blocks feed concat(h, emb) (zamba2)."""
+    d = cfg.d_model
+    d_in = d_in or d
+    hd = cfg.resolved_head_dim
+    p = {"wq": dense_init(generator, (d_in, cfg.n_heads * hd)),
+         "wk": dense_init(generator, (d_in, cfg.n_kv_heads * hd)),
+         "wv": dense_init(generator, (d_in, cfg.n_kv_heads * hd)),
+         "wo": dense_init(generator, (cfg.n_heads * hd, d))}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.n_heads * hd,), dtype=torch.float32)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=torch.float32)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=torch.float32)
+    return p
+
+
+def _project_qkv(cfg: ArchConfig, p, x, kv_x=None):
+    """-> q (B,S,Hq,hd), k/v (B,Skv,Hkv,hd)."""
+    dt = x.dtype
+    hd = cfg.resolved_head_dim
+    kv_x = x if kv_x is None else kv_x
+    q = x @ p["wq"].to(dt)
+    k = kv_x @ p["wk"].to(dt)
+    v = kv_x @ p["wv"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    B = x.shape[0]
+    q = q.reshape(B, x.shape[1], cfg.n_heads, hd)
+    k = k.reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
+    v = v.reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def sdpa(q, k, v, *, mask=None, cap: float = 0.0):
+    """Grouped scaled-dot-product attention.
+
+    q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd); Hq % Hkv == 0.
+    mask: broadcastable to (B,1,1,S,T), True = attend.
+    """
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, group, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float() * hd ** -0.5
+    logits = softcap(logits, cap)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, Hq, hd)
+
+
+def causal_mask(S: int, T: int, q_offset, window: int = 0, local_flag=None,
+                device=None):
+    """(1,1,1,S,T) boolean mask, True = attend.  ``local_flag`` (a bool or
+    a boolean tensor) False disables the window, as gemma2's global layers
+    need."""
+    qi = q_offset + torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        win = kj > qi - window
+        if local_flag is not None:
+            win = win | torch.logical_not(torch.as_tensor(local_flag,
+                                                          device=device))
+        m = m & win
+    return m[None, None, None]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal self-attention through ``kernels.flash_attention.ops`` with the
+    gradient of its plain version.
+
+    * forward: ``fa_ops.flash_attention(..., mode="auto")`` -- the CUDA
+      kernel ``flash_attention_fwd`` for CUDA tensors, ``attention_ref`` for
+      CPU tensors;
+    * backward: the vjp of ``attention_ref`` on the saved q, k, v, so that
+      the CPU forward and the gradient are one function; it computes what
+      the reference differentiates (its ``sdpa`` with ``causal_mask``; it
+      has no backward kernel).  The logits are recomputed in plain PyTorch:
+      that is the price of having no backward kernel (ROADMAP follow-up);
+    * vmap: folds the vmapped dim into the batch dim (an unbatched operand
+      is expanded over it) and calls the Function once, so
+      ``vmap(grad(loss))`` over a cohort launches the kernel once per
+      invocation and forward evaluation, whatever the cohort size.  The rule
+      does not look at the device, so the CPU tests exercise it through the
+      plain forward.
+
+    There is no ``jvp``: forward-mode AD through the kernel raises the error
+    ``torch.func`` gives.
+    """
+
+    @staticmethod
+    def forward(q, k, v, window, cap):
+        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                      softcap=cap, mode="auto")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window, cap = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.cap = window, cap
+
+    @staticmethod
+    def backward(ctx, g):
+        window, cap = ctx.window, ctx.cap
+
+        def plain(q, k, v):
+            return attention_ref(q, k, v, causal=True, window=window,
+                                 softcap=cap)
+
+        _, vjp_fn = torch.func.vjp(plain, *ctx.saved_tensors)
+        return (*vjp_fn(g), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, window, cap):
+        V = info.batch_size
+
+        def fold(t, d):
+            # (V, rows, ...) -> (V * rows, ...), broadcasting an unbatched
+            # operand over the vmapped dim
+            t = t.movedim(d, 0) if d is not None else t.expand(V, *t.shape)
+            return t.reshape(V * t.shape[1], *t.shape[2:])
+
+        out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                   fold(v, in_dims[2]), window, cap)
+        return out.reshape(V, out.shape[0] // V, *out.shape[1:]), 0
+
+
+def flash_attention(q, k, v, *, window: int = 0, cap: float = 0.0):
+    """The differentiable, vmappable causal attention of
+    :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, window, cap)
+
+
+def attn_forward(cfg: ArchConfig, p, x, *, positions, window: int = 0,
+                 local_flag=None, kv_x=None, kv_positions=None,
+                 causal: bool = True):
+    """Full-sequence attention (train / prefill / encoder / cross).  Causal
+    self-attention without a ``local_flag`` runs :class:`FlashAttention`;
+    any other mask the plain :func:`sdpa`."""
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kpos = kv_positions if kv_positions is not None else positions
+        k = apply_rope(k, kpos, cfg.rope_theta)
+    if causal and kv_x is None and local_flag is None:
+        out = flash_attention(q, k, v, window=window, cap=cfg.attn_softcap)
+    else:
+        mask = causal_mask(q.shape[1], k.shape[1], 0, window, local_flag,
+                           device=q.device) if causal else None
+        out = sdpa(q, k, v, mask=mask, cap=cfg.attn_softcap)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+
+
+def _write_row(cache, row, pos: int):
+    """``cache`` (B,T,...) with row ``pos`` replaced by ``row`` (B,1,...),
+    functionally (``torch.func.vmap`` runs decode over users).  The start
+    is clamped into the cache as ``lax.dynamic_update_slice`` clamps it."""
+    pos = min(max(int(pos), 0), cache.shape[1] - 1)
+    return torch.cat([cache[:, :pos], row.to(cache.dtype),
+                      cache[:, pos + 1:]], dim=1)
+
+
+def attn_decode(cfg: ArchConfig, p, x, k_cache, v_cache, pos, *,
+                window: int = 0, local_flag=None, rope: bool = True,
+                mask_pos=None, rope_pos=None):
+    """One-token decode. x: (B,1,d_in); caches: (B,T,Hkv,hd); pos an int.
+
+    ``mask_pos`` overrides the causal-mask position and ``rope_pos`` the
+    rotary position (ring-buffer caches write at ``pos`` = slot while the
+    rotary/mask positions stay absolute).
+    Returns (out (B,1,d), new_k_cache, new_v_cache).
+    """
+    q, k, v = _project_qkv(cfg, p, x)
+    if rope:
+        rp = pos if rope_pos is None else rope_pos
+        posv = torch.full((x.shape[0], 1), int(rp), dtype=torch.int32,
+                          device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+    k_cache = _write_row(k_cache, k, pos)
+    v_cache = _write_row(v_cache, v, pos)
+    T = k_cache.shape[1]
+    kj = torch.arange(T, device=x.device)
+    mpos = pos if mask_pos is None else mask_pos
+    m = kj <= mpos
+    if window:
+        win = kj > mpos - window
+        if local_flag is not None:
+            win = win | torch.logical_not(torch.as_tensor(local_flag,
+                                                          device=x.device))
+        m = m & win
+    mask = m[None, None, None, None, :]
+    out = sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask=mask,
+               cap=cfg.attn_softcap)
+    B = x.shape[0]
+    return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache
+
+
+_ENCDEC = ("cross-attention decode comes with the encdec slice "
+           "(models/encdec.py), ROADMAP.md Queue 1 item 3")
+_MLA = ("Multi-head Latent Attention comes with the moe slice "
+        "(deepseek-v3's MLA), ROADMAP.md Queue 1 item 3")
+
+
+def cross_attn_decode(cfg: ArchConfig, p, x, enc_k, enc_v):
+    raise NotImplementedError(_ENCDEC)
+
+
+def init_mla(generator, cfg: ArchConfig):
+    raise NotImplementedError(_MLA)
+
+
+def mla_forward(cfg: ArchConfig, p, x, *, positions):
+    raise NotImplementedError(_MLA)
+
+
+def mla_decode(cfg: ArchConfig, p, x, ckv_cache, krope_cache, pos):
+    raise NotImplementedError(_MLA)

@@ -1,8 +1,9 @@
 """Model building blocks of ``src/repro/models/layers.py``: the fan-in
-truncated-normal init, the cross-entropy loss, and what the SSM language
-model needs (RMSNorm, logit soft-capping, the token embedding and the
-unembedding).  Rotary embeddings and the MLPs come with the attention
-families.
+truncated-normal init, the cross-entropy loss, what the SSM language model
+needs (RMSNorm, logit soft-capping, the token embedding and the
+unembedding), and what the hybrid's shared block needs (rotary embeddings,
+the SwiGLU MLP).  The GELU MLP and the sinusoidal positions come with the
+encdec family.
 
 Params are nested dicts of tensors, as in the reference.  Stacked
 (per-layer) params carry a leading ``n_layers`` axis."""
@@ -53,6 +54,46 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Angles in
+    f32, the two halves of the head rotated, cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs   # (...,S,1,hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             d_in: Optional[int] = None):
+    d_in = d_in or d_model
+    return {"wg": dense_init(generator, (d_in, d_ff)),
+            "wu": dense_init(generator, (d_in, d_ff)),
+            "wd": dense_init(generator, (d_ff, d_model))}
+
+
+def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    return h @ p["wd"].to(dt)
 
 
 def init_embed(generator: torch.Generator, vocab: int, d_model: int):

@@ -1,0 +1,176 @@
+"""Port of flash attention (``repro_torch.kernels.flash_attention``, and the
+``FlashAttention`` autograd Function of ``repro_torch.models.attention``)
+against the JAX package: the same numpy inputs through both.
+
+Inputs.  k is unit normal; v unit normal plus t/S along the position t, so
+the output is of order 1 and moves when the window moves; q is 2 x unit
+normal in f32 (logits of std 2 after the hd^-0.5 scale: a peaked softmax)
+and unit normal in bf16.  The reference forms q.kᵀ in bf16 and so rounds
+the logits (the Pallas kernel and the CUDA kernel do not): with q at 2 x
+unit normal that rounding alone moves bf16 outputs by up to 1.1 x the
+tolerance at S = 4096, and by 0.3 x with unit-normal q.
+
+Tolerances, as the reference's own kernel tests: 2e-5 in f32 and 2e-2 in
+bf16 (atol and rtol), for the port's ``attention_ref`` against the JAX
+``attention_ref`` and against the Pallas ``flash_attention_fwd`` in
+interpret mode.  Every comparison also shows that a zero output and a
+sign-flipped output fail it, and every windowed case that the output
+without the window does.  Gradients within 1e-5.  The CUDA kernel is held
+against ``attention_ref`` on the card by ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import grad, vmap
+
+from repro.kernels.flash_attention.kernel import flash_attention_fwd as j_fwd
+from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.attention import FlashAttention, flash_attention
+
+# (B, S, Hq, Hkv, hd, window, softcap): tests/test_kernels.py's
+# FLASH_SHAPES cut to S = 128 (MHA, GQA 2:1, MQA, a wide head), with
+# windows and softcaps spread over them
+CASES = [
+    (1, 128, 4, 4, 32, 0, 0.0),
+    (2, 128, 4, 2, 64, 32, 0.0),
+    (1, 128, 8, 1, 64, 0, 30.0),
+    (2, 128, 2, 2, 128, 64, 50.0),
+]
+TOL = {"f32": 2e-5, "bf16": 2e-2}
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(B, S, Hq, Hkv, hd, seed=0, q_scale=2.0):
+    rng = np.random.RandomState(seed)
+    q = q_scale * rng.randn(B, S, Hq, hd)
+    k = rng.randn(B, S, Hkv, hd)
+    v = rng.randn(B, S, Hkv, hd) + (np.arange(S) / S)[None, :, None, None]
+    return [a.astype(np.float32) for a in (q, k, v)]
+
+
+def _holds(got, want, tol, *wrong):
+    """``got`` within ``tol`` of ``want``; a zero output, a sign-flipped one
+    and every output in ``wrong`` fail the same check."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    for bad in (np.zeros_like(want), -want) + wrong:
+        assert not np.allclose(np.asarray(bad, np.float32), want, atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_attention_ref_matches_jax_ref_and_pallas_kernel(case, dname):
+    B, S, Hq, Hkv, hd, window, cap = case
+    jdt, tdt = DTYPES[dname]
+    ins = _inputs(B, S, Hq, Hkv, hd, q_scale=2.0 if dname == "f32" else 1.0)
+    jins = [jnp.asarray(a, jdt) for a in ins]
+    tins = [torch.from_numpy(a).to(tdt) for a in ins]
+    kw = dict(causal=True, window=window, softcap=cap)
+    K.reset_launches()
+    got = ops.flash_attention(*tins, **kw)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, Hq, hd)
+    assert K.LAUNCHES["flash_attention_fwd"] == 0   # CPU: the plain version
+    np.testing.assert_array_equal(
+        got.float().numpy(), attention_ref(*tins, **kw).float().numpy())
+    wrong = ()
+    if window:
+        wrong = (attention_ref(*tins, causal=True, softcap=cap).float(),)
+    tol = TOL[dname]
+    _holds(got.float(), j_ref(*jins, **kw), tol, *wrong)
+    _holds(got.float(), j_fwd(*jins, **kw, block_q=64, block_k=64,
+                              interpret=True), tol, *wrong)
+
+
+def test_attention_ref_without_causal_mask():
+    ins = _inputs(1, 64, 4, 2, 32, seed=3)
+    got = attention_ref(*map(torch.from_numpy, ins), causal=False)
+    want = j_ref(*map(jnp.asarray, ins), causal=False)
+    causal = attention_ref(*map(torch.from_numpy, ins))
+    _holds(got, want, TOL["f32"], causal)
+
+
+def test_ops_modes_and_kernel_wrapper_refuse_cpu_tensors():
+    q, k, v = map(torch.from_numpy, _inputs(1, 64, 4, 4, 64))
+    ref = attention_ref(q, k, v, window=16)
+    assert torch.equal(ops.flash_attention(q, k, v, window=16, mode="ref"),
+                       ref)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.flash_attention(q, k, v, mode="kernel")
+    with pytest.raises(ValueError, match="mode must be one of"):
+        ops.flash_attention(q, k, v, mode="pallas")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        K.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="causal attention only"):
+        ops.flash_attention(q, k, v, causal=False, mode="kernel")
+    assert K.LAUNCHES["flash_attention_fwd"] == 0
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (16, 0.0), (24, 30.0)])
+def test_flash_attention_gradient_matches_jax_vjp_of_sdpa(window, cap):
+    """The Function's backward is the vjp of the plain masked sdpa: against
+    ``jax.vjp`` of the reference ``sdpa`` with ``causal_mask``, f32, GQA."""
+    B, S, Hq, Hkv, hd = 2, 48, 4, 2, 32
+    ins = _inputs(B, S, Hq, Hkv, hd, seed=1)
+    g = np.random.RandomState(2).randn(B, S, Hq, hd).astype(np.float32)
+
+    def jfn(q, k, v):
+        return jattn.sdpa(q, k, v, mask=jattn.causal_mask(S, S, 0, window),
+                          cap=cap)
+    jout, jvjp = jax.vjp(jfn, *map(jnp.asarray, ins))
+    jgrads = jvjp(jnp.asarray(g))
+    tins = [torch.from_numpy(a).requires_grad_() for a in ins]
+    out = flash_attention(*tins, window=window, cap=cap)
+    grads = torch.autograd.grad(out, tins, torch.from_numpy(g))
+    _holds(out.detach(), jout, 1e-5)
+    for a, b in zip(grads, jgrads):
+        _holds(a, b, 1e-5)
+
+
+def test_flash_attention_vmap_grad_matches_per_user_loop():
+    """``vmap(grad(...))`` over a cohort of 3, with q per user and k/v
+    unbatched (broadcast by the vmap rule), and with all three per user,
+    equals a Python loop over the users."""
+    U, S, H, hd, window = 3, 32, 2, 32, 8
+    rng = np.random.RandomState(4)
+    qs = torch.from_numpy(rng.randn(U, 1, S, H, hd).astype(np.float32))
+    k, v = (torch.from_numpy(a[0])
+            for a in _inputs(1, S, H, H, hd, seed=5)[1:])
+    w = torch.from_numpy(rng.randn(1, S, H, hd).astype(np.float32))
+
+    def loss(q, k, v):
+        return (flash_attention(q, k, v, window=window) * w).sum()
+
+    assert FlashAttention.generate_vmap_rule is False
+    fwd = vmap(lambda q: flash_attention(q, k[None], v[None],
+                                         window=window))(qs)
+    g_v = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(0, None, None))(
+        qs, k[None], v[None])
+    for u in range(U):
+        _holds(fwd[u], flash_attention(qs[u], k[None], v[None],
+                                       window=window), 1e-6)
+        g_u = grad(loss, argnums=(0, 1, 2))(qs[u], k[None], v[None])
+        for a, b in zip(g_v, g_u):
+            _holds(a[u], b, 1e-6)
+    ks = torch.stack([k[None] * (1 + 0.1 * u) for u in range(U)])
+    vs = torch.stack([v[None] - 0.2 * u for u in range(U)])
+    g_all = vmap(grad(loss, argnums=(0, 1, 2)))(qs, ks, vs)
+    for u in range(U):
+        g_u = grad(loss, argnums=(0, 1, 2))(qs[u], ks[u], vs[u])
+        for a, b in zip(g_all, g_u):
+            _holds(a[u], b, 1e-6)

@@ -51,5 +51,11 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.kernels.ssd.ops", "repro_torch.models.layers",
                  "repro_torch.models.mamba2", "repro_torch.models.ssm_lm",
                  "repro_torch.models.api", "repro_torch.launch",
+                 "repro_torch.configs.zamba2_1p2b",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.models.attention",
                  "repro_torch.launch.steps", "repro_torch.launch.serve"):
         assert name in out["modules"]

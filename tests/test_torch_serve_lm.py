@@ -2,7 +2,11 @@
 ``PersonalizationServer``) against the JAX package on the smoke mamba2
 (``reduce_for_smoke(mamba2-130m)``): both servers from the same init, the
 same 3 users with the same token streams, mode C (λ = 30, α = 0.01, K = 5,
-η_in = 0.01, as the serve driver sets them), fp32 and int8 banking.
+η_in = 0.01, as the serve driver sets them), fp32 and int8 banking.  The
+hybrid (``reduce_for_smoke(zamba2-1.2b)``, one shared attention block) goes
+through the same path with ``personal_subset=("shared", "embed/unembed")``,
+fp32, its personalized decode carrying the attention ring and the
+``emb0: None`` cache entry through the port's vmap.
 
 Tolerances.  fp32 heads within 1e-5 (each is K gradient steps on the same
 params, summed in other orders; heads move about 6e-3 from the global
@@ -23,12 +27,15 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from repro.core import PersAFLConfig as JConfig
+from repro.core.subset import SubsetSpec as JSubsetSpec
+from repro.core.subset import merge_subset as merge_jsubset
 from repro.launch import serve as jserve
 from repro.models import api as japi
 from repro.serving import PersonalizationServer as JServer
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.core import PersAFLConfig
+from repro_torch.core.subset import SubsetSpec, merge_subset
 from repro_torch.launch import serve
 from repro_torch.models import api
 from repro_torch.serving import PersonalizationServer
@@ -195,6 +202,110 @@ def test_decode_tokens_match_reference(ref, personalized):
     assert float((top2[..., 1] - top2[..., 0]).min()) > 2 * LOGIT_TOL
 
 
+HYBRID_SUBSET = ("shared", "embed/unembed")
+
+
+@pytest.fixture(scope="module")
+def zref():
+    """The hybrid on the JAX side, once: the fp32 server's subset heads
+    (the shared block and the unembedding per user) and its decode."""
+    jcfg = j_reduce(j_get_config("zamba2-1.2b"))
+    cfg = reduce_for_smoke(get_config("zamba2-1.2b"))
+    jparams = japi.init_params(jcfg, jax.random.PRNGKey(1))
+    np_params = jax.tree.map(np.asarray, jparams)
+    batches = [serve._user_batch(cfg, 10 + u, PLEN) for u in range(USERS)]
+    js = JServer(jparams, lambda p, b: japi.loss_fn(jcfg, p, b),
+                 JConfig(**PCFG), modes=("C",), max_pending=USERS,
+                 personal_subset=HYBRID_SUBSET)
+    for user, b in zip(_users(), batches):
+        js.submit(user, {k: jnp.asarray(v) for k, v in b.items()})
+    js.flush()
+    heads = js.stacked_heads(_users())
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab, (USERS, PROMPT)
+                                              ).astype(np.int32)
+    spec = JSubsetSpec.resolve(HYBRID_SUBSET, jparams)
+    tokens = jserve._decode_personalized(
+        jcfg, heads, jnp.asarray(prompt), PROMPT + TOKENS, PROMPT,
+        params=jparams, spec=spec)
+    return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, np_params=np_params,
+                batches=batches, heads=jax.tree.map(np.asarray, heads),
+                prompt=prompt, tokens=np.asarray(tokens))
+
+
+def test_hybrid_server_subset_heads_match_reference(zref):
+    """Both packages' servers personalize the hybrid's shared block and
+    unembedding (fp32, mode C): heads within ATOL, each moved well past it,
+    and every user's head below the global loss on their own stream."""
+    cfg = zref["cfg"]
+    ts = PersonalizationServer(zref["np_params"],
+                               lambda p, b: api.loss_fn(cfg, p, b),
+                               PersAFLConfig(**PCFG), modes=("C",),
+                               max_pending=USERS, device="cpu",
+                               personal_subset=HYBRID_SUBSET)
+    for user, b in zip(_users(), zref["batches"]):
+        ts.submit(user, b)
+    heads = ts.stacked_heads(_users())
+    assert ts.stats["host_materializations"] == 0
+    assert sorted(heads) == ["embed", "shared"]
+    assert list(heads["embed"]) == ["unembed"]
+    want = zref["heads"]
+    spec = SubsetSpec.resolve(HYBRID_SUBSET, zref["np_params"])
+    base_leaves = jax.tree.leaves(spec.extract(zref["np_params"]))
+    moved = 0.0
+    for a, b, p in zip(tree_leaves(heads), jax.tree.leaves(want),
+                       base_leaves):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0)
+        moved = max(moved, float(np.abs(b - p[None]).max()))
+    assert moved > 10 * ATOL
+    for u, b in enumerate(zref["batches"]):
+        tb = {k: torch.from_numpy(v) for k, v in b.items()}
+        head = merge_subset(ts.params, tree_map(lambda x: x[u], heads))
+        assert float(api.loss_fn(cfg, head, tb)) < \
+            float(api.loss_fn(cfg, ts.params, tb))
+
+
+def test_hybrid_decode_tokens_match_reference(zref):
+    """The JAX subset heads carried across decode the same tokens through
+    the port's ``_decode_personalized`` (backbone shared, in_dims None),
+    past the end of the ring (8 + 12 positions > the window of 16), with
+    every decoded position's top-2 margin above twice LOGIT_TOL."""
+    jcfg, cfg, prompt = zref["jcfg"], zref["cfg"], zref["prompt"]
+    params = params_from_jax(zref["np_params"], device="cpu")
+    heads = params_from_jax(zref["heads"], device="cpu")
+    spec = SubsetSpec.resolve(HYBRID_SUBSET, params)
+    max_len = PROMPT + TOKENS
+    got = serve._decode_personalized(cfg, heads, torch.from_numpy(prompt),
+                                     max_len, PROMPT, params=params,
+                                     spec=spec)
+    assert tuple(got.shape) == (USERS, TOKENS)
+    np.testing.assert_array_equal(got.numpy(), zref["tokens"])
+    # the logits behind each decoded token, user by user, in both packages
+    seq = np.concatenate([prompt, got.numpy()], axis=1)[:, :-1]
+    jstep = jax.jit(lambda p, c, t, pos: japi.decode_step(
+        jcfg, p, c, t, jnp.int32(pos)))
+    t_rows, j_rows = [], []
+    for u in range(USERS):
+        jp = merge_jsubset(zref["jparams"], jax.tree.map(
+            lambda x: jnp.asarray(x[u]), zref["heads"]))
+        tp = merge_subset(params, tree_map(lambda x: x[u], heads))
+        jc = japi.init_cache(jcfg, jp, {"tokens": jnp.asarray(
+            seq[u:u + 1, :1])}, max_len, jnp.float32)
+        tc = api.init_cache(cfg, tp, {"tokens": torch.from_numpy(
+            seq[u:u + 1, :1])}, max_len, torch.float32)
+        for t in range(seq.shape[1]):
+            tok = seq[u:u + 1, t:t + 1]
+            jl, jc = jstep(jp, jc, jnp.asarray(tok), t)
+            tl, tc = api.decode_step(cfg, tp, tc, torch.from_numpy(tok), t)
+            j_rows.append(np.asarray(jl)[0, 0])
+            t_rows.append(tl.numpy()[0, 0])
+    dec = np.stack(t_rows).reshape(USERS, seq.shape[1], -1)[:, PROMPT - 1:]
+    want = np.stack(j_rows).reshape(USERS, seq.shape[1], -1)[:, PROMPT - 1:]
+    np.testing.assert_allclose(dec, want, atol=LOGIT_TOL, rtol=0)
+    np.testing.assert_array_equal(dec.argmax(-1), got.numpy())
+    top2 = np.sort(dec, axis=-1)[..., -2:]
+    assert float((top2[..., 1] - top2[..., 0]).min()) > 2 * LOGIT_TOL
+
+
 def test_serve_main_smoke_on_cpu(tmp_path):
     run = serve.main(["--arch", "mamba2-130m", "--smoke", "--personalize",
                       "--requests", "3", "--tokens", "4", "--device", "cpu",
@@ -221,6 +332,16 @@ def test_serve_main_smoke_on_cpu(tmp_path):
     assert list(run.heads) == ["embed"] and \
         list(run.heads["embed"]) == ["unembed"]
     assert tuple(run.out_tokens.shape) == (2, 2)
+    # the hybrid through the same entry point, with its subset and int8
+    run = serve.main(["--arch", "zamba2-1.2b", "--smoke", "--personalize",
+                      "--requests", "2", "--tokens", "12", "--device", "cpu",
+                      "--delta-dtype", "int8", "--personal-subset",
+                      "shared,embed/unembed", "--out", str(tmp_path)])
+    assert run.record["arch"] == "zamba2-1.2b"
+    assert run.record["host_materializations"] == 0
+    assert sorted(run.heads) == ["embed", "shared"]
+    assert tuple(run.out_tokens.shape) == (2, 12)
+    assert (tmp_path / "serve_zamba2-1.2b.json").is_file()
 
 
 @pytest.mark.parametrize("flag", [["--listen", "0"], ["--model-axis", "2"],

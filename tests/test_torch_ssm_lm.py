@@ -97,15 +97,16 @@ def _port_config(jcfg):
 
 
 def test_config_registry():
-    assert configs.list_archs() == ["mamba2-130m"]
-    cfg = configs.get_config("mamba2-130m")
-    jcfg = jconfigs.get_config("mamba2-130m")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert cfg.activation_dtype == torch.bfloat16
-    assert base.reduce_for_smoke(cfg).activation_dtype == torch.float32
+    assert configs.list_archs() == ["mamba2-130m", "zamba2-1.2b"]
+    for arch in configs.list_archs():
+        cfg = configs.get_config(arch)
+        jcfg = jconfigs.get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.activation_dtype == torch.bfloat16
+        assert base.reduce_for_smoke(cfg).activation_dtype == torch.float32
     # every other reference arch names the slice that brings it
     for arch in jconfigs.list_archs():
-        if arch == "mamba2-130m":
+        if arch in configs.list_archs():
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             configs.get_config(arch)
@@ -265,12 +266,19 @@ def test_decode_steps_match_reference(smoke):
 
 
 def test_hybrid_and_other_families_raise():
+    """The hybrid family is ported (it builds the shared block); the dense,
+    vlm and audio families still raise, naming their slices."""
     cfg = base.reduce_for_smoke(configs.get_config("mamba2-130m"))
-    hybrid = dataclasses.replace(cfg, family="hybrid", attn_every=2)
-    with pytest.raises(NotImplementedError, match="attention slice"):
-        ssm_lm.init_ssm_lm(hybrid, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="attention slice"):
+    hybrid = dataclasses.replace(cfg, family="hybrid", attn_every=2,
+                                 n_heads=4, n_kv_heads=4, head_dim=32,
+                                 d_ff=512)
+    params = api.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
+    assert sorted(params["shared"]) == ["attn", "ln_in", "ln_mlp", "mlp"]
+    with pytest.raises(NotImplementedError, match="dense slice"):
         api.loss_fn(dataclasses.replace(cfg, family="dense"), {}, {})
+    with pytest.raises(NotImplementedError, match="dense slice"):
+        api.init_params(dataclasses.replace(cfg, family="vlm"),
+                        torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="encdec slice"):
         api.init_params(dataclasses.replace(cfg, family="audio",
                                             is_encdec=True),

@@ -28,6 +28,14 @@ Phases; any failure exits non-zero and prints no result line:
      check, each per-row case that row 0's a_log for every row does, each
      windowed attention case that the output without the window does, and
      each softcap case that the output without the softcap does.
+     The local steps ``sgd_step``, ``prox_inner`` and ``prox_outer``
+     through their tree fronts (``ops.<name>_tree``, the entry points that
+     run them, as in the reference), ``mode="kernel"`` against
+     ``mode="ref"`` within TOLS: at the CNN's 8 leaves, at LOCAL_CASES
+     (n = 2^26+3; f32, bf16, f32 with bf16 other operands) and at the full
+     param trees of mamba2-130m (12 leaves) and zamba2-1.2b (21 leaves),
+     f32; launch counts zeroed just before each checked call and read just
+     after.
      Times are medians of CUDA-event timings; ``bound_ms`` is the larger of
      the bytes the function must move over the H100 SXM's 3.35 TB/s and its
      FLOPs over the card's peak for the operands' type (for ``ssd_fwd`` and
@@ -36,7 +44,8 @@ Phases; any failure exits non-zero and prints no result line:
      ceiling of the kernels' present design, beside it; ``library_ms``
      times one PyTorch call that
      computes the same function (a yardstick the port never calls; none
-     exists for the scan, nor for attention with a softcap).
+     exists for the scan, for attention with a softcap, for ``prox_inner``
+     or for mixed dtypes).
   3. main path -- PersA-FL asynchronous training of the paper CNN on
      label-skewed synthetic MNIST (the fig2 setup of
      ``benchmarks/common.py``: 30 clients, 5 classes each, batch 16, Q = 10,
@@ -85,6 +94,16 @@ Phases; any failure exits non-zero and prints no result line:
      38 + 6 launches per call.  (k) the same architecture at 6 layers (one
      shared invocation), f32, card against CPU, as (h), with (i)'s subset.
 
+  8. baselines -- (l) the paper's Figure 2 baselines on the fig2 setup
+     (``benchmarks/common.py:48-72``: Option A batches, η = 0.01, batch 16)
+     through ``FLRun(device="cuda")``: FedProx (μ = 0.1) under
+     sync_barrier(10) for 5 rounds, SCAFFOLD under sync_barrier(10) for 5
+     rounds and under buffered(8) for 20 server rounds; counts zeroed just
+     before and read just after.  Checks: finite params, accuracy in
+     [0, 1], no host materialization, ``apply_rows`` launched; then 2
+     rounds of each sync run on the card and on the CPU: identical
+     timeline, params and SCAFFOLD's c_global within PARAM_ATOL.
+
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -104,12 +123,18 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 KERNEL_LIBS = ("fused_update", "ssd", "flash_attention")
-SOURCES = {"apply_scaled": "src/repro_torch/csrc/fused_update.cu",
+SOURCES = {"sgd_step": "src/repro_torch/csrc/fused_update.cu",
+           "prox_inner": "src/repro_torch/csrc/fused_update.cu",
+           "prox_outer": "src/repro_torch/csrc/fused_update.cu",
+           "apply_scaled": "src/repro_torch/csrc/fused_update.cu",
            "apply_rows": "src/repro_torch/csrc/fused_update.cu",
            "apply_rows_q": "src/repro_torch/csrc/fused_update.cu",
            "ssd_fwd": "src/repro_torch/csrc/ssd.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu"}
-REPLACES = {"apply_scaled": "src/repro/kernels/fused_update/kernel.py:229",
+REPLACES = {"sgd_step": "src/repro/kernels/fused_update/kernel.py:78",
+            "prox_inner": "src/repro/kernels/fused_update/kernel.py:83",
+            "prox_outer": "src/repro/kernels/fused_update/kernel.py:90",
+            "apply_scaled": "src/repro/kernels/fused_update/kernel.py:229",
             "apply_rows": "src/repro/kernels/fused_update/kernel.py:129",
             "apply_rows_q": "src/repro/kernels/fused_update/kernel.py:186",
             "ssd_fwd": "src/repro/kernels/ssd/kernel.py:73",
@@ -133,6 +158,9 @@ ACC_ATOL = 0.01
 # different f32 value.  Every case checks that a no-op and a sign-flipped
 # result fail these limits.
 TOLS = {"apply_scaled": dict(atol=1e-6, rtol=0.0),
+        "sgd_step": dict(atol=1e-6, rtol=0.0),
+        "prox_inner": dict(atol=1e-6, rtol=0.0),
+        "prox_outer": dict(atol=1e-6, rtol=0.0),
         "apply_rows": dict(atol=1e-5, rtol=1e-4),
         "apply_rows_q": dict(atol=1e-5, rtol=1e-4),
         "bf16": dict(atol=1e-5, rtol=2.0 ** -7)}
@@ -156,6 +184,18 @@ ROWS_Q_CASES = ((1, 2 ** 20 + 5, "f32"), (8, 2 ** 20 + 5, "f32"),
                 (300, 2 ** 20 + 5, "f32"), (1500, 2 ** 20 + 5, "f32"),
                 (8, 2 ** 24, "f32"), (8, 2 ** 20 + 5, "bf16"),
                 (300, 2 ** 20 + 5, "bf16"))
+# the local steps through their tree fronts: name -> (scalars, scale of g
+# against w).  Option A's η, Option C's η_in and λ; η = 0.01 and λ = 20 make
+# an ηλ whose f64 product rounds to another f32 than f32(η)·f32(λ).  g is
+# scaled so that η·|g| and ηλ·|w − θ| are of the order of |w|: at η = 0.01
+# and g like w a no-op would pass one bf16 ulp
+LOCAL_STEPS = {"sgd_step": (dict(eta=0.01), 50.0),
+               "prox_inner": (dict(eta_in=0.02, lam=20.0), 25.0),
+               "prox_outer": (dict(eta=0.01, lam=20.0), None)}
+# (n, first operand's dtype, the other operands' dtype), beside the CNN's
+# leaves and the two LMs' full param trees
+LOCAL_CASES = ((2 ** 26 + 3, "f32", "f32"), (2 ** 26 + 3, "bf16", "bf16"),
+               (2 ** 26 + 3, "f32", "bf16"))
 FIG2 = dict(q_local=10, beta=1.0, alpha=0.01, lam=25.0, inner_steps=10,
             inner_eta=0.02, maml_mode="full")
 # serving phase (e): the quant bench's convergence configuration
@@ -212,6 +252,16 @@ def time_ms(torch, fn, launches: int = 20, repeats: int = 5,
     return statistics.median(times)
 
 
+def leaves_close(torch, got, want, tol):
+    """Max abs error over a list of leaves, and whether every leaf is within
+    ``tol``."""
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, want))
+    ok = all(torch.allclose(a.float(), b.float(), **tol)
+             for a, b in zip(got, want))
+    return err, ok
+
+
 def kernel_phase(torch, cnn_shapes, lm_cases=()):
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ref as R
@@ -234,12 +284,8 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
 
     def close(name, got, want):
         """Max abs error, and whether every leaf is within tolerance."""
-        err = max(float((a.float() - b.float()).abs().max()) if a.numel()
-                  else 0.0 for a, b in zip(got, want))
-        tol = TOLS["bf16" if want[0].dtype == bf16 else name]
-        ok = all(torch.allclose(a.float(), b.float(), **tol)
-                 for a, b in zip(got, want))
-        return err, ok
+        return leaves_close(torch, got, want,
+                            TOLS["bf16" if want[0].dtype == bf16 else name])
 
     def run_case(name, label, ws, ds, extra):
         """One shape: a list of leaves, applied one launch per leaf."""
@@ -379,6 +425,113 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return results
+
+
+def local_step_phase(torch, cnn_shapes, lm_cases):
+    """``sgd_step``, ``prox_inner`` and ``prox_outer`` through their tree
+    fronts, the entry points that run them: ``ops.<name>_tree(mode=
+    "kernel")`` against ``mode="ref"`` on the same inputs, at the MNIST
+    CNN's leaves, at LOCAL_CASES and at the LMs' full param trees.  The
+    counts are zeroed just before each front's checked call and read just
+    after; their sum is the kernels line's ``launches``.  Returns the rows
+    per kernel and those sums."""
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.fused_update import ops
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    results = {name: [] for name in LOCAL_STEPS}
+    launches = dict.fromkeys(LOCAL_STEPS, 0)
+
+    def randn(shape, scale, dtype):
+        return (scale * torch.randn(*shape, device="cuda", generator=g)
+                ).to(dtype)
+
+    def operands(name, shapes, first, other):
+        """The front's tensor trees, the output's template first: (w, g),
+        (θ, g, w) or (w, θ); ``other`` is every other tree's dtype."""
+        g_scale = LOCAL_STEPS[name][1]
+        trees = [[randn(sh, 0.5, first) for sh in shapes]]
+        if g_scale is not None:
+            trees.append([randn(sh, 0.5 * g_scale, other) for sh in shapes])
+        if name != "sgd_step":
+            trees.append([randn(sh, 0.5, other) for sh in shapes])
+        return trees
+
+    def library(name, trees, kw):
+        """One PyTorch call per leaf computing the same function, where
+        one exists and the dtypes agree (neither call mixes them)."""
+        if name == "prox_inner" or trees[0][0].dtype != trees[1][0].dtype:
+            return None
+        if name == "sgd_step":
+            return lambda: [torch.add(w, gg, alpha=-kw["eta"])
+                            for w, gg in zip(*trees)]
+        return lambda: [torch.lerp(w, t, kw["eta"] * kw["lam"])
+                        for w, t in zip(*trees)]
+
+    def run_case(name, label, shapes, first, other):
+        kw = LOCAL_STEPS[name][0]
+        front = getattr(ops, name + "_tree")
+        trees = operands(name, shapes, dtypes[first], dtypes[other])
+        want = front(*trees, **kw, mode="ref")
+        # an output element the kernel left unwritten would hold what the
+        # allocator's block held before: NaN, which no check passes
+        torch.cuda.empty_cache()
+        poison = [torch.full_like(x, float("nan")) for x in trees[0]]
+        del poison
+        K.reset_launches()
+        got = front(*trees, **kw, mode="kernel")
+        n = K.LAUNCHES[name]
+        torch.cuda.synchronize()
+        check(n == len(shapes), f"{name} {label}: {n} launches through "
+                                f"{name}_tree for {len(shapes)} leaves")
+        launches[name] += n
+        tol = TOLS["bf16" if dtypes[first] == torch.bfloat16 else name]
+        err, ok = leaves_close(torch, got, want, tol)
+        check(ok, f"{name} {label}: kernel disagrees with its plain version "
+                  f"(max abs err {err})")
+        flipped = [(2 * x.float() - o.float()).to(x.dtype)
+                   for x, o in zip(trees[0], want)]
+        noop_err, noop_ok = leaves_close(torch, trees[0], want, tol)
+        flip_err, flip_ok = leaves_close(torch, flipped, want, tol)
+        check(not noop_ok and not flip_ok,
+              f"{name} {label}: the tolerance cannot tell a no-op (err "
+              f"{noop_err}) or a sign flip (err {flip_err}) from the plain "
+              f"version")
+        del got, want, flipped
+        numel = sum(x.numel() for x in trees[0])
+        # each input read once and the output written once
+        nbytes = sum(x.numel() * x.element_size()
+                     for tree in trees for x in tree) \
+            + sum(x.numel() * x.element_size() for x in trees[0])
+        calls = 20 if numel < 10 ** 8 else 5
+        lib = library(name, trees, kw)
+        row = {"shape": label, "max_abs_err": err, "noop_err": noop_err,
+               "sign_flip_err": flip_err,
+               "ms": time_ms(torch, lambda: front(*trees, **kw,
+                                                  mode="kernel"), calls),
+               "plain_ms": time_ms(torch, lambda: front(*trees, **kw,
+                                                        mode="ref"), calls),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": None if lib is None
+               else time_ms(torch, lib, calls),
+               "launches_per_call": len(shapes), "params": numel}
+        results[name].append(row)
+        print(f"kernel {name} {label}: {json.dumps(row)}", flush=True)
+        del trees
+        torch.cuda.empty_cache()
+
+    cases = [("MNIST_CNN 8 leaves f32", cnn_shapes, "f32", "f32")]
+    cases += [(f"n={n} {dw}" if dw == do else f"n={n} first {dw} rest {do}",
+               [(n,)], dw, do) for n, dw, do in LOCAL_CASES]
+    cases += [(label, shapes, "f32", "f32") for label, shapes in lm_cases]
+    for label, shapes, first, other in cases:
+        for name in LOCAL_STEPS:
+            run_case(name, label, shapes, first, other)
+    print(f"local steps through their tree fronts, launches: "
+          f"{json.dumps(launches)}", flush=True)
+    return results, launches
 
 
 # ssd_fwd against ssd_ref on the card, as the reference's own
@@ -793,19 +946,26 @@ RUNS = {
 }
 
 
-def make_run(torch, setup, name, device):
+def fl_run(setup, strategy_spec, option, eta, sched, device):
+    """An ``FLRun`` of the fig2 setup: ``strategy_spec`` is ``(name,
+    kwargs)``, ``sched`` ``(schedule name, *args)``."""
     from repro_torch.core import PersAFLConfig
     from repro_torch.fl import (DelayModel, FLRun, buffered, immediate,
                                 strategy, sync_barrier)
     clients, params, loss, _ = setup
-    option, eta, sched, _, _ = RUNS[name]
     schedule = {"immediate": immediate, "buffered": buffered,
                 "sync_barrier": sync_barrier}[sched[0]](*sched[1:])
     return FLRun(clients=clients, loss_fn=loss, init_params=params,
                  pcfg=PersAFLConfig(option=option, eta=eta, **FIG2),
                  delays=DelayModel(len(clients), seed=0),
-                 strategy=strategy("persafl", option=option),
+                 strategy=strategy(strategy_spec[0], **strategy_spec[1]),
                  schedule=schedule, batch_size=16, seed=0, device=device)
+
+
+def make_run(torch, setup, name, device):
+    option, eta, sched, _, _ = RUNS[name]
+    return fl_run(setup, ("persafl", {"option": option}), option, eta,
+                  sched, device)
 
 
 def finite(torch, params) -> bool:
@@ -916,6 +1076,86 @@ def cpu_parity(torch, setup, main_hists):
         check(diff <= PARAM_ATOL, f"({name}) params differ by {diff}")
         check(acc_diff <= ACC_ATOL, f"({name}) accuracy differs by "
                                     f"{acc_diff}")
+
+
+# ---------------------------------------------------------------------------
+# phase (l): the paper's Figure 2 baselines FedProx and SCAFFOLD
+# ---------------------------------------------------------------------------
+
+# benchmarks/common.py:48-72's sync baselines on the fig2 setup: Option A's
+# batch layout, η = 0.01, batch 16; name -> (strategy, kwargs, schedule,
+# rounds, eval_every)
+BASELINES = {
+    "fedprox sync_barrier(10)": ("fedprox", {"mu": 0.1},
+                                 ("sync_barrier", 10), 5, 1),
+    "scaffold sync_barrier(10)": ("scaffold", {}, ("sync_barrier", 10), 5, 1),
+    "scaffold buffered(8)": ("scaffold", {}, ("buffered", 8), 20, 4),
+}
+
+
+def baseline_run(setup, key, device):
+    name, kw, sched, _, _ = BASELINES[key]
+    return fl_run(setup, (name, kw), "A", 0.01, sched, device)
+
+
+def baselines_phase(torch, setup):
+    """(l): FedProx and SCAFFOLD through ``FLRun`` on the card, counts
+    zeroed just before and read just after; then 2 rounds of each sync run
+    on the card and on the CPU."""
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.tree import tree_leaves
+    ev = setup[3]
+    K.reset_launches()
+    for key, (_, _, _, rounds, every) in BASELINES.items():
+        run = baseline_run(setup, key, "cuda")
+        t0 = time.perf_counter()
+        hist = run.run(max_rounds=rounds, eval_every=every, eval_fn=ev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(finite(torch, run.params), f"(l) {key}: params not finite")
+        check(hist.acc and all(0.0 <= a <= 1.0 for a in hist.acc),
+              f"(l) {key}: accuracy trajectory {hist.acc}")
+        check(run.stats["host_materializations"] == 0,
+              f"(l) {key}: {run.stats['host_materializations']} host "
+              f"materializations")
+        print(f"baselines (l) {key} rounds={rounds}: wall {wall:.3f} s, "
+              f"acc {[round(a, 4) for a in hist.acc]}, "
+              f"max staleness {max(hist.staleness, default=0)}, "
+              f"stats {json.dumps(run.stats)}", flush=True)
+    launches = {k: K.LAUNCHES[k] for k in ("apply_scaled", "apply_rows")}
+    print(f"baselines (l) launches: {json.dumps(launches)}", flush=True)
+    # sync and buffered flushes fold the bank through apply_rows
+    check(launches["apply_rows"] > 0,
+          "(l): apply_rows was not launched by the baselines")
+
+    def max_diff(a, b):
+        return max(float((x.cpu() - y.cpu()).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    for key in ("fedprox sync_barrier(10)", "scaffold sync_barrier(10)"):
+        runs = {dev: baseline_run(setup, key, dev) for dev in ("cuda", "cpu")}
+        hists = {dev: r.run(max_rounds=2, eval_every=1, eval_fn=ev)
+                 for dev, r in runs.items()}
+        for field in ("times", "rounds", "staleness", "active_times",
+                      "active_ratio", "end_time"):
+            check(getattr(hists["cuda"], field)
+                  == getattr(hists["cpu"], field),
+                  f"(l) {key} 2 rounds: {field} differs between card and "
+                  f"CPU")
+        diff = max_diff(runs["cuda"].params, runs["cpu"].params)
+        cdiff = max_diff(runs["cuda"].strategy.c_global,
+                         runs["cpu"].strategy.c_global) \
+            if key.startswith("scaffold") else 0.0
+        acc_diff = max(abs(a - b) for a, b in zip(hists["cuda"].acc,
+                                                  hists["cpu"].acc))
+        print(f"parity (l) {key} 2 rounds: timeline identical, max |param "
+              f"diff| {diff:.3e}, max |c_global diff| {cdiff:.3e} (tol "
+              f"{PARAM_ATOL}), acc card {hists['cuda'].acc} cpu "
+              f"{hists['cpu'].acc}", flush=True)
+        check(diff <= PARAM_ATOL and cdiff <= PARAM_ATOL,
+              f"(l) {key}: params differ by {diff}, c_global by {cdiff}")
+        check(acc_diff <= ACC_ATOL, f"(l) {key}: accuracy differs by "
+                                    f"{acc_diff}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1493,12 +1733,22 @@ def run_phases(torch):
     setup = fig2_setup(torch)
     from repro_torch.tree import tree_leaves
     cnn_shapes = [tuple(x.shape) for x in tree_leaves(setup[1])]
+    mshapes = lm_leaf_shapes("mamba2-130m")
     zshapes = lm_leaf_shapes("zamba2-1.2b")
     # zamba2's personal subset: embed/unembed and the 9 shared leaves
     results = kernel_phase(torch, cnn_shapes, (
-        ("mamba2-130m 12 leaves", lm_leaf_shapes("mamba2-130m")),
+        ("mamba2-130m 12 leaves", mshapes),
         ("zamba2-1.2b shared,embed/unembed 10 leaves",
          [zshapes[1]] + zshapes[12:])))
+    lm_trees = []
+    for arch, shapes in (("mamba2-130m", mshapes), ("zamba2-1.2b", zshapes)):
+        n_params = sum(int(np.prod(sh)) for sh in shapes)
+        check((n_params, len(shapes)) == LM_PARAMS[arch],
+              f"{arch}: {n_params} params in {len(shapes)} leaves")
+        lm_trees.append((f"{arch} {len(shapes)} leaves f32", shapes))
+    local_rows, local_launches = local_step_phase(torch, cnn_shapes,
+                                                  lm_trees)
+    results.update(local_rows)
     results["ssd_fwd"] = ssd_kernel_phase(torch)
     results["flash_attention_fwd"] = flash_kernel_phase(torch)
     imm_ms = immediate_apply_ms(torch, setup[1])
@@ -1522,6 +1772,7 @@ def run_phases(torch):
     del z_params
     torch.cuda.empty_cache()
     lm_cpu_parity(torch, "zamba2-1.2b", 6, "(k)", subset=ZAMBA_SUBSET)
+    base_launches = baselines_phase(torch, setup)
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -1538,6 +1789,9 @@ def run_phases(torch):
         elif name == "flash_attention_fwd":
             # serving phase (i) is flash_attention_fwd's main path
             n = zl["fp32"]["flash_attention_fwd_launches"]
+        elif name in LOCAL_STEPS:
+            # the tree fronts are the local steps' main path
+            n = local_launches[name]
         else:
             # apply_rows_q runs on the serving path (e) only; the others'
             # counts are those of training runs (a)-(d)
@@ -1563,7 +1817,8 @@ def run_phases(torch):
             entry["launches_prefill_per_call"] = {
                 k: v["flash_attention_fwd_launches_per_call"]
                 for k, v in zprefill.items()}
-        else:
+        elif name not in LOCAL_STEPS:
+            entry["launches_fig2_baselines"] = base_launches.get(name, 0)
             entry["launches_serving"] = serve_launches.get(name, 0)
             entry["launches_lm_window_apply"] = {
                 label: sum(v["window_apply_launches"] for v in runs.values()

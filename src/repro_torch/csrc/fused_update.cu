@@ -1,22 +1,27 @@
-// Server-apply kernels of PersA-FL for Hopper (sm_90a), with a plain C
+// Fused-update kernels of PersA-FL for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (repro_torch/kernels/_build.py).
 //
+//   fu_sgd_step:     out = w - eta * g                  (Option A step)
+//   fu_prox_inner:   out = t - eta_in * (g + lam * (t - w))
+//                                                     (Option C inner step)
+//   fu_prox_outer:   out = w - (eta*lam) * (w - t)      (Option C outer step)
 //   fu_apply_scaled: out = w - s * d              (every immediate apply)
 //   fu_apply_rows:   out = w - sum_i s_i * d_i    (every buffered / sync flush,
 //                                                 every fp32-banked window)
 //   fu_apply_rows_q: out = w - sum_i (s_i * scale_i) * q_i   (every int8-banked
 //                                                 serving window; q int8)
 //
-// All three read their inputs once and write the output once, do the arithmetic
-// in f32 and keep the storage type of w (f32 or bf16; d may be either).  They are
-// memory-bound elementwise passes: the bound on an H100 SXM is the bytes moved
-// over 3.35 TB/s, and there is nothing to tile for -- the TPU kernels' 64K-row
-// padding, 8192-column blocks and SMEM scalar are artefacts of that machine and
-// are not carried over.  Neither kernel allocates, synchronises or pads: the
-// ragged tail is masked by the loop bound, and the launch goes on the stream the
-// caller passes (PyTorch's current stream).  Each entry point returns the value
-// of cudaGetLastError() after the launch, which the Python wrapper turns into an
-// exception.
+// All of them read their inputs once and write the output once, do the
+// arithmetic in f32 and keep the storage type of their first operand (f32 or
+// bf16; every other float operand may be either).  They are memory-bound
+// elementwise passes: the bound on an H100 SXM is the bytes moved over
+// 3.35 TB/s, and there is nothing to tile for -- the TPU kernels' 64K-element
+// padding, 8192-column blocks and SMEM scalar are artefacts of that machine
+// and are not carried over.  No kernel allocates, synchronises or pads: the
+// ragged tail is masked by the loop bound, and the launch goes on the stream
+// the caller passes (PyTorch's current stream).  Each entry point returns the
+// value of cudaGetLastError() after the launch, which the Python wrapper turns
+// into an exception.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +66,61 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     store_f32(out, i, __fsub_rn(load_f32(w, i), __fmul_rn(s, load_f32(d, i))));
+  }
+}
+
+// The three local-step kernels replace src/repro/kernels/fused_update/
+// kernel.py:78 sgd_step, :83 prox_inner and :90 prox_outer (bodies
+// _sgd_kernel at :39, _prox_inner_kernel at :45 and _prox_outer_kernel at :52,
+// all run by _run_flat at :58).  Bound: sgd_step and prox_outer move 3n
+// elements (2 read, 1 written), prox_inner 4n (3 read, 1 written), over
+// 3.35 TB/s: at n = 2^26+3 in f32 0.2404 ms and 0.3205 ms.  Design:
+// apply_scaled's -- a grid-stride loop, one element per thread per step,
+// neighbouring threads on neighbouring addresses.  The TPU's 64K-element BLOCK
+// padding (kernel.py:36, :58-75) is a VMEM tiling and is not carried over; the
+// loop bound masks the ragged tail.  Every operation is rounded on its own
+// (__fmul_rn, __fsub_rn, __fadd_rn; nvcc would otherwise contract a multiply
+// and an add into one FMA, rounded once), in the plain version's order, so
+// each kernel is bit-equal to its plain version.  The host rounds each scalar
+// to f32 as the plain version does; prox_outer takes eta*lam as one scalar,
+// formed in double and rounded once.
+template <typename TW, typename TG>
+__global__ void __launch_bounds__(kThreads)
+    sgd_step_kernel(TW* __restrict__ out, const TW* __restrict__ w,
+                    const TG* __restrict__ g, float eta, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    store_f32(out, i,
+              __fsub_rn(load_f32(w, i), __fmul_rn(eta, load_f32(g, i))));
+  }
+}
+
+template <typename TT, typename TG, typename TW>
+__global__ void __launch_bounds__(kThreads)
+    prox_inner_kernel(TT* __restrict__ out, const TT* __restrict__ theta,
+                      const TG* __restrict__ g, const TW* __restrict__ w,
+                      float eta_in, float lam, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float t = load_f32(theta, i);
+    const float pull = __fmul_rn(lam, __fsub_rn(t, load_f32(w, i)));
+    store_f32(out, i,
+              __fsub_rn(t, __fmul_rn(eta_in, __fadd_rn(load_f32(g, i), pull))));
+  }
+}
+
+template <typename TW, typename TT>
+__global__ void __launch_bounds__(kThreads)
+    prox_outer_kernel(TW* __restrict__ out, const TW* __restrict__ w,
+                      const TT* __restrict__ theta, float eta_lam, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float wi = load_f32(w, i);
+    const float gap = __fsub_rn(wi, load_f32(theta, i));
+    store_f32(out, i, __fsub_rn(wi, __fmul_rn(eta_lam, gap)));
   }
 }
 
@@ -152,6 +212,20 @@ int grid_for(int64_t n) {
   return static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
 }
 
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) with T the storage type of dtype code `code`; false for a code
+// it does not know.  f returns whether it launched.
+template <typename F>
+bool with_dtype(int code, F&& f) {
+  if (code == kF32) return f(Tag<float>{});
+  if (code == kBF16) return f(Tag<__nv_bfloat16>{});
+  return false;
+}
+
 template <typename TW, typename TD>
 void launch_scaled(void* out, const void* w, const void* d, float s, int64_t n,
                    cudaStream_t stream) {
@@ -178,6 +252,60 @@ void launch_rows_q(void* out, const void* w, const int8_t* q, const float* s,
       static_cast<TW*>(out), static_cast<const TW*>(w), q, s, scale, m, n);
 }
 
+// The local steps' launchers: false for a dtype code they do not know.  The
+// dispatch's generic lambdas live here, at namespace scope, and not inside
+// the extern "C" entry points.
+bool launch_sgd_step(void* out, const void* w, const void* g, float eta,
+                     int64_t n, int w_dtype, int g_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_dtype(w_dtype, [&](auto tw) {
+    return with_dtype(g_dtype, [&](auto tg) {
+      using TW = typename decltype(tw)::type;
+      using TG = typename decltype(tg)::type;
+      sgd_step_kernel<TW, TG><<<grid_for(n), kThreads, 0, st>>>(
+          static_cast<TW*>(out), static_cast<const TW*>(w),
+          static_cast<const TG*>(g), eta, n);
+      return true;
+    });
+  });
+}
+
+bool launch_prox_inner(void* out, const void* theta, const void* g,
+                       const void* w, float eta_in, float lam, int64_t n,
+                       int t_dtype, int g_dtype, int w_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_dtype(t_dtype, [&](auto tt) {
+    return with_dtype(g_dtype, [&](auto tg) {
+      return with_dtype(w_dtype, [&](auto tw) {
+        using TT = typename decltype(tt)::type;
+        using TG = typename decltype(tg)::type;
+        using TW = typename decltype(tw)::type;
+        prox_inner_kernel<TT, TG, TW><<<grid_for(n), kThreads, 0, st>>>(
+            static_cast<TT*>(out), static_cast<const TT*>(theta),
+            static_cast<const TG*>(g), static_cast<const TW*>(w), eta_in, lam,
+            n);
+        return true;
+      });
+    });
+  });
+}
+
+bool launch_prox_outer(void* out, const void* w, const void* theta,
+                       float eta_lam, int64_t n, int w_dtype, int t_dtype,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_dtype(w_dtype, [&](auto tw) {
+    return with_dtype(t_dtype, [&](auto tt) {
+      using TW = typename decltype(tw)::type;
+      using TT = typename decltype(tt)::type;
+      prox_outer_kernel<TW, TT><<<grid_for(n), kThreads, 0, st>>>(
+          static_cast<TW*>(out), static_cast<const TW*>(w),
+          static_cast<const TT*>(theta), eta_lam, n);
+      return true;
+    });
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -196,6 +324,37 @@ int fu_apply_scaled(void* out, const void* w, const void* d, float s,
   } else if (w_dtype == kBF16 && d_dtype == kBF16) {
     launch_scaled<__nv_bfloat16, __nv_bfloat16>(out, w, d, s, n, st);
   } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The local steps.  Each returns cudaErrorInvalidValue for a dtype code it
+// does not know, else the value of cudaGetLastError() after the launch.  n
+// must be > 0.
+int fu_sgd_step(void* out, const void* w, const void* g, float eta, int64_t n,
+                int w_dtype, int g_dtype, void* stream) {
+  if (!launch_sgd_step(out, w, g, eta, n, w_dtype, g_dtype, stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fu_prox_inner(void* out, const void* theta, const void* g, const void* w,
+                  float eta_in, float lam, int64_t n, int t_dtype, int g_dtype,
+                  int w_dtype, void* stream) {
+  if (!launch_prox_inner(out, theta, g, w, eta_in, lam, n, t_dtype, g_dtype,
+                         w_dtype, stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// eta_lam is eta*lam, formed by the caller in double and rounded to f32 once.
+int fu_prox_outer(void* out, const void* w, const void* theta, float eta_lam,
+                  int64_t n, int w_dtype, int t_dtype, void* stream) {
+  if (!launch_prox_outer(out, w, theta, eta_lam, n, w_dtype, t_dtype,
+                         stream)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

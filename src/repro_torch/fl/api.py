@@ -2,7 +2,10 @@
 
   * :class:`Strategy` — the local update rule.  ``local_update(params,
     batches, cstate) -> (delta, cstate, metrics)``; instances come from the
-    registry (``strategy("persafl", option="B")``).
+    registry (``strategy("persafl", option="B")``, ``strategy("fedprox",
+    mu=0.1)``, ``strategy("scaffold")``).  Client state is a stacked tree
+    carried through the cohort's ``vmap``, so the stateful SCAFFOLD runs
+    the same cohort engine and DeltaBank path as every other rule.
   * :class:`ApplyPolicy` — the server apply schedule: ``immediate()`` is
     Algorithm 1's per-arrival apply, ``buffered(M)`` the FedBuff-style
     M-deltas-per-round flush consumed straight from the bank through the
@@ -14,9 +17,9 @@
 The event timeline is numpy and Python (the heap of ``(t, client, kind)``
 events, ``FLRun.rng`` batch draws), so it is the reference's to the bit.
 
-Still to port (ROADMAP Queue 1): the ``fedprox`` and ``scaffold``
-strategies, the device scheduler (``scheduler="device"``) and the scenario
-engine's ``ChurnModel`` corruption.
+Still to port (ROADMAP Queue 1): the device scheduler
+(``scheduler="device"``) and the scenario engine's ``ChurnModel``
+corruption.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import heapq
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-
+import torch
 from torch.func import grad
 
 from repro_torch.core import (PersAFLConfig, admission_weights,
@@ -38,10 +41,9 @@ from repro_torch.core.server import staleness_stats
 from repro_torch.core.subset import SubsetSpec, merge_subset
 from repro_torch.data.federated import sample_batches
 from repro_torch.device import resolve_device
+from repro_torch.fl.algorithms import fedprox_update, scaffold_update
 from repro_torch.fl.engine import CohortEngine, DeltaBank
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-
-_NOT_PORTED = {"fedprox": "fl/algorithms.py", "scaffold": "fl/algorithms.py"}
 
 
 @dataclasses.dataclass
@@ -84,24 +86,60 @@ def _normalize_eval(result) -> Tuple[float, Optional[float]]:
 # ---------------------------------------------------------------------------
 
 class Strategy:
-    """A local update rule.
+    """A local update rule with a client-state lifecycle.
 
-    ``local_update(params, batches, cstate) -> (delta, cstate, metrics)`` is
-    one client's contribution against a frozen params snapshot; the delta
-    is params-shaped (bank-row compatible).  :meth:`bind` attaches the run's
-    (pcfg, loss_fn).
+      * ``init_client_state(params)`` — the per-client state carried across
+        rounds (None for stateless rules; SCAFFOLD returns its control
+        variate c_i).
+      * ``local_update(params, batches, cstate) -> (delta, cstate, metrics)``
+        — one client's contribution against a frozen params snapshot; the
+        delta is params-shaped f32 (bank-row compatible).
+      * ``dispatch_state(cstate)`` — host-side hook run right before a
+        cohort dispatch (identity by default).
+      * ``shared_state()`` / ``assemble_state(cstate, shared)`` — the
+        strategy-shared input, read once per cohort call and passed to the
+        cohort's ``vmap`` unbatched (in-dim None), recombined with each
+        client's row inside the mapped body: SCAFFOLD ships one c_global per
+        call, not one copy per cohort row.
+      * ``post_round(updates, n_clients)`` — host-side hook run after the
+        cohort's states are written back; ``updates`` is ``[(client_index,
+        old_cstate, new_cstate), ...]`` in dispatch order.
+
+    :meth:`bind` attaches the run's (pcfg, loss_fn) and resets any
+    strategy-shared state.
     """
 
     name = "strategy"
     option = "A"        # batch-split layout, for introspection
+    stateful = False
 
     def bind(self, pcfg: PersAFLConfig, loss_fn: Callable) -> "Strategy":
         self.pcfg = pcfg
         self.loss_fn = loss_fn
         return self
 
+    def init_client_state(self, params):
+        return None
+
+    def dispatch_state(self, cstate):
+        return cstate
+
+    def shared_state(self):
+        """Strategy-shared cohort input, passed unbatched; None for
+        strategies without one."""
+        return None
+
+    def assemble_state(self, cstate, shared):
+        """One client's state row recombined with the shared input inside
+        the mapped cohort body (identity for shared-less strategies)."""
+        return cstate
+
     def local_update(self, params, batches, cstate):
         raise NotImplementedError
+
+    def post_round(self, updates: List[Tuple[int, object, object]],
+                   n_clients: int) -> None:
+        pass
 
 
 _REGISTRY: Dict[str, Callable[..., Strategy]] = {}
@@ -118,14 +156,11 @@ def register_strategy(*names):
 
 
 def strategy(name: str, **kw) -> Strategy:
-    """Construct a registered strategy: ``strategy("persafl", option="B")``."""
+    """Construct a registered strategy: ``strategy("persafl", option="B")``,
+    ``strategy("fedprox", mu=0.1)``, ``strategy("scaffold")``, …"""
     try:
         factory = _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {name!r} is not ported yet (it comes with "
-                f"{_NOT_PORTED[name]}; see ROADMAP.md Queue 1)") from None
         raise ValueError(f"unknown strategy {name!r}; "
                          f"have {sorted(_REGISTRY)}") from None
     return factory(**kw)
@@ -170,6 +205,72 @@ class PersAFLStrategy(Strategy):
 for _nm, _opt in (("fedavg", "A"), ("fedasync", "A"),
                   ("perfedavg", "B"), ("pfedme", "C")):
     _REGISTRY[_nm] = functools.partial(PersAFLStrategy, option=_opt)
+
+
+@register_strategy("fedprox")
+class FedProxStrategy(Strategy):
+    """FedProx [42]: local SGD on f_i(w) + μ/2 ‖w − w^t‖² over the first Q
+    of the 3Q batches (Option A's layout).  Stateless."""
+
+    name = "fedprox"
+
+    def __init__(self, mu: float = 0.1):
+        self.mu = mu
+
+    def bind(self, pcfg, loss_fn):
+        return super().bind(dataclasses.replace(pcfg, option="A"), loss_fn)
+
+    def local_update(self, params, batches_3q, cstate):
+        q = self.pcfg.q_local
+        delta, metrics = fedprox_update(
+            self.pcfg, self.loss_fn, params,
+            tree_map(lambda x: x[:q], batches_3q), mu=self.mu)
+        return delta, None, metrics
+
+
+@register_strategy("scaffold")
+class ScaffoldStrategy(Strategy):
+    """SCAFFOLD [34] (Option I), the stateful registry strategy.
+
+    Per-client state is the control variate c_i (params-shaped f32, stacked
+    over the cohort axis); the shared c_global enters every cohort call
+    through :meth:`shared_state` and is updated on the host in
+    :meth:`post_round`: c_global += (c_i⁺ − c_i)/n per participating
+    client, leaf by leaf, in dispatch order.
+    """
+
+    name = "scaffold"
+    stateful = True
+
+    def bind(self, pcfg, loss_fn):
+        self.c_global = None
+        return super().bind(dataclasses.replace(pcfg, option="A"), loss_fn)
+
+    def init_client_state(self, params):
+        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        if self.c_global is None:
+            self.c_global = zeros
+        return zeros
+
+    def shared_state(self):
+        return self.c_global
+
+    def assemble_state(self, cstate, shared):
+        return {"c": shared, "c_i": cstate}
+
+    def local_update(self, params, batches_3q, dstate):
+        q = self.pcfg.q_local
+        return scaffold_update(
+            self.pcfg, self.loss_fn, params,
+            tree_map(lambda x: x[:q], batches_3q), dstate["c"],
+            dstate["c_i"])
+
+    def post_round(self, updates, n_clients):
+        for _, c_old, c_new in updates:
+            self.c_global = tree_map(
+                lambda cg, cn, co: cg + (cn - co) / n_clients,
+                self.c_global, c_new, c_old)
 
 
 @register_strategy("personalize")
@@ -449,6 +550,7 @@ class FLRun:
                                    cohort_impl=cohort_impl,
                                    strategy=self.strategy,
                                    device=self.device)
+        self._cstates: List = [None] * len(clients)
         self._on_eval: Optional[Callable] = None
         self._stop = False
         self.final_stats: Optional[Dict] = None
@@ -469,6 +571,27 @@ class FLRun:
     def _sample(self, i: int):
         return sample_batches(self.clients[i], self.rng,
                               3 * self.pcfg.q_local, self.batch_size)
+
+    def _cstate_for_dispatch(self, i: int):
+        if not self.strategy.stateful:
+            return None
+        if self._cstates[i] is None:
+            self._cstates[i] = self.strategy.init_client_state(
+                self.state.params)
+        return self.strategy.dispatch_state(self._cstates[i])
+
+    def _write_back(self, client_ids: List[int], bank: DeltaBank) -> None:
+        """Store the cohort's updated client states (rows gathered on the
+        device) and run the strategy's shared-state fold (SCAFFOLD's
+        c_global)."""
+        if not self.strategy.stateful:
+            return
+        updates = []
+        for row, i in enumerate(client_ids):
+            new = bank.client_state(row)
+            updates.append((i, self._cstates[i], new))
+            self._cstates[i] = new
+        self.strategy.post_round(updates, len(self.clients))
 
     @property
     def stats(self) -> Dict:
@@ -507,15 +630,20 @@ class FLRun:
         snapshot.  Deltas are recorded as (DeltaBank, row) handles."""
         if not self._pending:
             return
-        bank = self.engine.update_cohort(self.state.params,
-                                         [b for _, _, b in self._pending])
-        ids = np.asarray([i for _, i, _ in self._pending])
-        if self.delays.corruption_factors(ids) is not None:
+        stateful = self.strategy.stateful
+        bank = self.engine.update_cohort(
+            self.state.params, [b for _, _, b, _ in self._pending],
+            cstate_list=[c for _, _, _, c in self._pending]
+            if stateful else None)
+        ids = [i for _, i, _, _ in self._pending]
+        if self.delays.corruption_factors(np.asarray(ids)) is not None:
             raise NotImplementedError(
                 "delta corruption (the scenario engine's ChurnModel) is not "
                 "ported yet (ROADMAP.md Queue 1)")
-        for idx, (rid, _, _) in enumerate(self._pending):
+        for idx, (rid, _, _, _) in enumerate(self._pending):
             self._computed[rid] = (bank, idx)
+        if stateful:
+            self._write_back(ids, bank)
         self._pending = []
 
     def _record_eval(self, hist: History, now: float, eval_fn,
@@ -612,7 +740,8 @@ class FLRun:
         next_active_t = 0.0
         busy_up = {i: None for i in range(n)}  # upload finish times
         inflight: Dict[int, Tuple[int, int]] = {}  # client -> (rid, version)
-        self._pending: List[Tuple[int, int, Dict]] = []  # (rid, client, b)
+        # (rid, client, batches, dispatch-ready cstate or None)
+        self._pending: List[Tuple[int, int, Dict, object]] = []
         self._computed: Dict[int, Tuple] = {}   # rid -> (DeltaBank, row)
         self._t = int(self.state.t)             # host-side round mirror
         next_rid = 0
@@ -639,7 +768,8 @@ class FLRun:
                     continue
                 rid = next_rid
                 next_rid += 1
-                self._pending.append((rid, i, self._sample(i)))
+                self._pending.append((rid, i, self._sample(i),
+                                      self._cstate_for_dispatch(i)))
                 busy_up[i] = t_up
                 inflight[i] = (rid, self._t)
             else:                               # upload complete
@@ -671,7 +801,12 @@ class FLRun:
         for rnd in range(max_rounds):
             sel = self.rng.choice(n, m, replace=False)
             batches = [self._sample(int(i)) for i in sel]
-            bank = self.engine.update_cohort(self.state.params, batches)
+            cstates = [self._cstate_for_dispatch(int(i)) for i in sel] \
+                if self.strategy.stateful else None
+            # the m sampled clients share the round's params: one cohort
+            # call, deltas land in the bank, client state rides the stack
+            bank = self.engine.update_cohort(self.state.params, batches,
+                                             cstate_list=cstates)
             finish = [self.delays.sample_download(int(i), now)
                       + self.delays.sample_upload(int(i), now) for i in sel]
             round_len = max(finish)
@@ -691,6 +826,7 @@ class FLRun:
             self.state = apply_buffered_rows(self.state, bank.stacked,
                                              weights, 1, staleness_max=0,
                                              staleness_sum=0.0)
+            self._write_back([int(i) for i in sel], bank)
             if eval_fn is not None and (rnd + 1) % eval_every == 0:
                 self._record_eval(hist, now, eval_fn, rnd + 1)
             if self._stop or (max_time is not None and now >= max_time):

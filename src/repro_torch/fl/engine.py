@@ -28,9 +28,15 @@ carries only the personal leaves.  Every bank goes through the callbacks
 registered with :meth:`CohortEngine.add_bank_hook` before ``update_cohort``
 returns it: the serving ring retains banks across windows that way.
 
+Stateful strategies (SCAFFOLD's control variates) pass one client-state
+tree per client to ``update_cohort(..., cstate_list=...)``: the states are
+stacked on the device along the cohort axis and mapped with the batches,
+the strategy's shared state (SCAFFOLD's c_global) passes unbatched, and the
+updated states come back on the bank (:meth:`DeltaBank.client_state`, a
+gather on the device).
+
 The per-event sequential path is kept behind ``vectorized=False``.  The
-reference's ``"shard_map"`` cohort and stateful strategies (SCAFFOLD's
-stacked client state) come with later slices.
+reference's ``"shard_map"`` cohort comes with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -61,12 +67,17 @@ class DeltaBank:
     """
 
     def __init__(self, stacked=None, k: int = 0,
-                 stats: Optional[Dict] = None, rows: Optional[List] = None):
+                 stats: Optional[Dict] = None, rows: Optional[List] = None,
+                 cstates=None, cstate_rows: Optional[List] = None):
         self._stacked = stacked
         self._rows = rows          # per-event path: one delta tree per row
         self.k = k if rows is None else len(rows)
         self._stats = stats if stats is not None else {}
         self._host = None
+        # stateful-strategy runs: the updated per-client states, stacked
+        # along the same cohort axis (or one tree per row, per-event path)
+        self._cstates = cstates
+        self._cstate_rows = cstate_rows
         self._device = None if stacked is None \
             else tree_leaves(stacked)[0].device
 
@@ -102,6 +113,18 @@ class DeltaBank:
             # and holding both copies would double delta residency
             self._stacked = None
         return tree_map(lambda x: x[i], self._host)
+
+    def client_state(self, i: int):
+        """Row ``i``'s updated client state (stateful strategies only): a
+        gather from the stacked state buffer on its device, never a host
+        copy.  The row is copied out so that it does not keep the whole
+        stack alive."""
+        if self._cstate_rows is not None:
+            return self._cstate_rows[i]
+        if self._cstates is None:
+            raise ValueError("bank carries no client states "
+                             "(stateless strategy)")
+        return tree_map(lambda x: x[i].clone(), self._cstates)
 
     def __len__(self) -> int:
         return self.k
@@ -147,16 +170,28 @@ class CohortEngine:
                                       "max_cohort": 0, "padding_waste": 0,
                                       "host_materializations": 0}
         self.strategy = strategy
+        self.stateful = bool(strategy is not None
+                             and getattr(strategy, "stateful", False))
         if strategy is not None:
             def _one(params, batches):
                 delta, _, _ = strategy.local_update(params, batches, None)
                 return delta
+
+            def _one_s(params, batches, cstate, shared):
+                # the shared state (SCAFFOLD's c_global) is a separate
+                # unbatched input, recombined with the client's state row
+                # inside the mapped body
+                delta, new_cstate, _ = strategy.local_update(
+                    params, batches, strategy.assemble_state(cstate, shared))
+                return delta, new_cstate
         else:
             def _one(params, batches_3q):
                 batches = split_batches_for_option(pcfg.option, batches_3q)
                 delta, _ = client_update(pcfg, loss_fn, params, batches)
                 return delta
+            _one_s = None
         self._one = _one
+        self._one_s = _one_s
         # window-boundary hooks: every bank this engine produces is handed
         # to each callback before update_cohort returns it
         self._bank_hooks: List[Callable[[DeltaBank], None]] = []
@@ -171,20 +206,23 @@ class CohortEngine:
             hook(bank)
         return bank
 
-    def _vmap(self, params, stacked):
-        """The cohort through ``torch.func.vmap``.  vmap returns tensors
-        only, so the rule's delta goes out as its list of leaves and comes
-        back in its own structure (a pruned subset tree holds ``None``)."""
-        template = []
+    @staticmethod
+    def _vmap(fn, in_dims, *args):
+        """``fn`` over the cohort through ``torch.func.vmap``; ``fn`` returns
+        a tuple of trees.  vmap returns tensors only, so each tree goes out
+        as its list of leaves and comes back in its own structure (a pruned
+        subset tree holds ``None``)."""
+        templates = []
 
-        def flat_one(b):
-            delta = self._one(params, b)
-            template.append(tree_map(lambda _: 0, delta))
-            return tree_leaves(delta)
-        leaves = vmap(flat_one)(stacked)
+        def flat(*a):
+            trees = fn(*a)
+            templates.append([tree_map(lambda _: 0, t) for t in trees])
+            return [tree_leaves(t) for t in trees]
+        outs = vmap(flat, in_dims=in_dims)(*args)
         # vmap may hand the cohort axis back as a strided view; the apply
         # kernels take contiguous rows
-        return tree_unflatten(template[0], [x.contiguous() for x in leaves])
+        return [tree_unflatten(t, [x.contiguous() for x in leaves])
+                for t, leaves in zip(templates[0], outs)]
 
     def _bucket(self, k: int) -> int:
         """Pow2 bucket of a k-client cohort."""
@@ -193,9 +231,11 @@ class CohortEngine:
     def _to_device(self, host_tree):
         return tree_map(lambda x: to_tensor(x, self.device), host_tree)
 
-    def _pad_stack(self, batch_list: List):
-        """Pad to the bucket size, record stats, stack on the host and copy
-        each leaf to the device once."""
+    def _pad_stack(self, batch_list: List, cstate_list: Optional[List]):
+        """Pad to the bucket size, record stats, stack the batches on the
+        host and copy each leaf to the device once; padding rows repeat the
+        last client (batches and, when given, client state, which is
+        stacked on its device)."""
         k = len(batch_list)
         bucket = self._bucket(k)
         self.stats["cohort_calls"] += 1
@@ -203,33 +243,62 @@ class CohortEngine:
         self.stats["max_cohort"] = max(self.stats["max_cohort"], k)
         self.stats["padding_waste"] += bucket - k
         padded = list(batch_list) + [batch_list[-1]] * (bucket - k)
-        stacked = tree_map(lambda *xs: np.stack(xs), *padded)
-        return self._to_device(stacked), k
+        stacked = self._to_device(tree_map(lambda *xs: np.stack(xs),
+                                           *padded))
+        if cstate_list is None:
+            return stacked, None
+        return stacked, _stack(list(cstate_list)
+                               + [cstate_list[-1]] * (bucket - k))
 
-    def update_cohort(self, params, batch_list: List) -> DeltaBank:
+    def update_cohort(self, params, batch_list: List,
+                      cstate_list: Optional[List] = None) -> DeltaBank:
         """Run the local update rule for every client in the cohort.
 
         ``batch_list``: one 3Q-leading-dim batch tree per client (the raw
         ``sample_batches`` output, numpy).  Returns a :class:`DeltaBank` over
         the per-client deltas in the same order.  All clients are computed
         against the same ``params`` (on the engine's device).
+
+        Stateful strategies pass ``cstate_list``, one dispatch-ready
+        client-state tree per client on the engine's device; the updated
+        states come back on the bank (:meth:`DeltaBank.client_state`).
         """
+        if self.stateful != (cstate_list is not None):
+            raise ValueError("cstate_list must be given exactly when the "
+                             "engine's strategy is stateful")
         k = len(batch_list)
         if k == 0:
             return self._emit(DeltaBank(rows=[], stats=self.stats))
+        shared = self.strategy.shared_state() if self.stateful else None
         if not self.vectorized:
             self.stats["cohort_calls"] += 1
             self.stats["clients"] += k
             self.stats["max_cohort"] = max(self.stats["max_cohort"], k)
+            if not self.stateful:
+                return self._emit(DeltaBank(
+                    rows=[self._one(params, self._to_device(b))
+                          for b in batch_list], stats=self.stats))
+            outs = [self._one_s(params, self._to_device(b), c, shared)
+                    for b, c in zip(batch_list, cstate_list)]
             return self._emit(DeltaBank(
-                rows=[self._one(params, self._to_device(b))
-                      for b in batch_list], stats=self.stats))
-        stacked, k = self._pad_stack(batch_list)
-        if self.cohort_impl == "vmap":
-            deltas = self._vmap(params, stacked)
+                rows=[d for d, _ in outs], stats=self.stats,
+                cstate_rows=[c for _, c in outs]))
+        stacked, cstacked = self._pad_stack(batch_list, cstate_list)
+        # the mapped body returns a tuple of trees: (delta,) or (delta,
+        # cstate); the shared state maps with an in-dim of None
+        if self.stateful:
+            one = lambda b, c, sh: self._one_s(params, b, c, sh)  # noqa
+            in_dims, args = (0, 0, None), (stacked, cstacked, shared)
         else:
-            bucket = tree_leaves(stacked)[0].shape[0]
-            deltas = _stack([self._one(params,
-                                       tree_map(lambda x: x[r], stacked))
-                             for r in range(bucket)])
-        return self._emit(DeltaBank(stacked=deltas, k=k, stats=self.stats))
+            one = lambda b: (self._one(params, b),)  # noqa: E731
+            in_dims, args = (0,), (stacked,)
+        if self.cohort_impl == "vmap":
+            outs = self._vmap(one, in_dims, *args)
+        else:
+            rows = [one(*(a if d is None else tree_map(lambda x: x[r], a)
+                          for a, d in zip(args, in_dims)))
+                    for r in range(tree_leaves(stacked)[0].shape[0])]
+            outs = [_stack(list(col)) for col in zip(*rows)]
+        return self._emit(DeltaBank(
+            stacked=outs[0], k=k, stats=self.stats,
+            cstates=outs[1] if self.stateful else None))

@@ -1,5 +1,14 @@
-"""Hopper kernels for the server apply, bound through ctypes.
+"""Hopper kernels for the local steps and the server apply, bound through
+ctypes.
 
+  * :func:`sgd_step` -- ``w ← w − η·g``; replaces the TPU kernel
+    ``src/repro/kernels/fused_update/kernel.py:78`` (``sgd_step``).
+  * :func:`prox_inner` -- ``θ ← θ − η_in·(g + λ·(θ − w))``; replaces
+    ``kernel.py:83`` (``prox_inner``).
+  * :func:`prox_outer` -- ``w ← w − (ηλ)·(w − θ)``; replaces ``kernel.py:90``
+    (``prox_outer``).  The three run through the tree fronts of ``ops.py``
+    (``sgd_step_tree`` etc.), which only their callers reach: as in the
+    reference, ``client_update`` computes its steps in plain tensor code.
   * :func:`apply_scaled` -- ``w ← w − s·Δ``; replaces the TPU kernel
     ``src/repro/kernels/fused_update/kernel.py:229`` (``apply_scaled``).
     Every immediate apply runs it once per param leaf.
@@ -12,20 +21,21 @@
     (``apply_rows_q``).  Every window apply of a server that banks deltas in
     int8 runs it once per leaf and contributing bank.
 
-All three are CUDA C++ for ``sm_90a`` in ``repro_torch/csrc/fused_update.cu``,
-built by :mod:`repro_torch.kernels._build` at first use.  Both are
+All six are CUDA C++ for ``sm_90a`` in ``repro_torch/csrc/fused_update.cu``,
+built by :mod:`repro_torch.kernels._build` at first use.  All are
 memory-bound: their bound on the card is the bytes they move (``2n`` reads and
-``n`` writes, or ``(M+1)·n`` reads and ``n`` writes, times the element size;
-for ``apply_rows_q`` ``M·n`` int8 bytes, ``w`` read and written, and ``8M``
-bytes of weights and scales) over 3.35 TB/s; the source notes say what the
-design does about it.
+``n`` writes -- ``3n`` reads for ``prox_inner`` -- or ``(M+1)·n`` reads and
+``n`` writes, times the element size; for ``apply_rows_q`` ``M·n`` int8
+bytes, ``w`` read and written, and ``8M`` bytes of weights and scales) over
+3.35 TB/s; the source notes say what the design does about it.
 
 Each wrapper checks its inputs and raises on anything the kernel does not
 take: a tensor off the card, a dtype other than f32/bf16 (int8 for the
 quantized stack, f32 for weights and scales), a mismatched shape,
 a non-contiguous layout.  It allocates the output with ``torch.empty`` (the
-apply is out of place), launches on PyTorch's current stream, raises if the
-launch reports a CUDA error, and counts the launch in :data:`LAUNCHES`.
+update is out of place, in the first operand's dtype), launches on PyTorch's
+current stream, raises if the launch reports a CUDA error, and counts the
+launch in :data:`LAUNCHES`.
 There is no fallback: the plain versions in ``ref.py`` are for CPU tensors,
 picked by ``ops.py``.
 """
@@ -40,7 +50,8 @@ from repro_torch.kernels import _build
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched
-LAUNCHES = {"apply_scaled": 0, "apply_rows": 0, "apply_rows_q": 0}
+LAUNCHES = {"sgd_step": 0, "prox_inner": 0, "prox_outer": 0,
+            "apply_scaled": 0, "apply_rows": 0, "apply_rows_q": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +65,13 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_update")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    f32 = ctypes.c_float
+    lib.fu_sgd_step.argtypes = [p, p, p, f32, i64, i32, i32, p]
+    lib.fu_sgd_step.restype = i32
+    lib.fu_prox_inner.argtypes = [p, p, p, p, f32, f32, i64, i32, i32, i32, p]
+    lib.fu_prox_inner.restype = i32
+    lib.fu_prox_outer.argtypes = [p, p, p, f32, i64, i32, i32, p]
+    lib.fu_prox_outer.restype = i32
     lib.fu_apply_scaled.argtypes = [p, p, p, ctypes.c_float, i64, i32, i32, p]
     lib.fu_apply_scaled.restype = i32
     lib.fu_apply_rows.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
@@ -94,6 +112,59 @@ def _raise_on(name: str, err: int) -> None:
                            f"{err} ({msg})")
 
 
+def _elementwise(name: str, args, scalars) -> torch.Tensor:
+    """Checks ``args`` (``(arg name, tensor)`` pairs, the first the output's
+    template), launches ``fu_<name>`` once over them with the host floats
+    ``scalars`` and counts the launch.  Scalars pass by value as C floats,
+    so the launch never waits on the device; a tensor is refused."""
+    (first, x), rest = args[0], args[1:]
+    _check(name, first, x)
+    for arg, t in rest:
+        _check(name, arg, t, x.device)
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"{first} has {tuple(x.shape)}")
+    for s in scalars:
+        if isinstance(s, torch.Tensor):
+            raise TypeError(f"{name}: scalars must be host numbers, not "
+                            f"tensors")
+    codes = [_code(name, arg, t) for arg, t in args]
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    ptrs = [t.data_ptr() for _, t in args]
+    with torch.cuda.device(x.device):
+        err = getattr(_lib(), f"fu_{name}")(
+            out.data_ptr(), *ptrs, *(float(s) for s in scalars), n, *codes,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def sgd_step(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
+    """``w − η·g`` in f32, stored in ``w.dtype``; one kernel launch."""
+    return _elementwise("sgd_step", (("w", w), ("g", g)), (eta,))
+
+
+def prox_inner(theta: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+               eta_in: float, lam: float) -> torch.Tensor:
+    """``θ − η_in·(g + λ·(θ − w))`` in f32, stored in ``theta.dtype``; one
+    kernel launch."""
+    return _elementwise("prox_inner", (("theta", theta), ("g", g), ("w", w)),
+                        (eta_in, lam))
+
+
+def prox_outer(w: torch.Tensor, theta: torch.Tensor, eta: float,
+               lam: float) -> torch.Tensor:
+    """``w − (ηλ)·(w − θ)`` in f32, stored in ``w.dtype``; one kernel
+    launch.  ηλ is formed in double and rounded to f32 once, as the
+    reference's ``eta * lam * (w − θ)`` rounds it."""
+    return _elementwise("prox_outer", (("w", w), ("theta", theta)),
+                        (eta * lam,))
+
+
 def apply_scaled(w: torch.Tensor, d: torch.Tensor, scale: float
                  ) -> torch.Tensor:
     """``w − scale·d`` in f32, stored in ``w.dtype``; one kernel launch.
@@ -101,26 +172,7 @@ def apply_scaled(w: torch.Tensor, d: torch.Tensor, scale: float
     ``scale`` is a host number passed by value, so the apply never waits on
     the device to read it; a tensor is refused for that reason.
     """
-    name = "apply_scaled"
-    _check(name, "w", w)
-    _check(name, "d", d, w.device)
-    if d.shape != w.shape:
-        raise ValueError(f"{name}: d has shape {tuple(d.shape)}, "
-                         f"w has {tuple(w.shape)}")
-    if isinstance(scale, torch.Tensor):
-        raise TypeError(f"{name}: scale must be a host number, not a tensor")
-    wc, dc = _code(name, "w", w), _code(name, "d", d)
-    out = torch.empty_like(w)
-    n = w.numel()
-    if n == 0:
-        return out
-    with torch.cuda.device(w.device):
-        err = _lib().fu_apply_scaled(
-            out.data_ptr(), w.data_ptr(), d.data_ptr(), float(scale), n, wc,
-            dc, torch.cuda.current_stream().cuda_stream)
-    _raise_on(name, err)
-    LAUNCHES[name] += 1
-    return out
+    return _elementwise("apply_scaled", (("w", w), ("d", d)), (scale,))
 
 
 def apply_rows(w: torch.Tensor, d_stack: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Tree fronts for the server-apply kernels, one launch per param leaf.
+"""Tree fronts for the fused-update kernels, one launch per param leaf.
 
 ``mode`` picks the implementation per leaf:
 
@@ -29,6 +29,31 @@ def _pick(kernel_fn, ref_fn, mode: str, leaf: torch.Tensor):
     if mode == "ref" or (mode == "auto" and leaf.device.type == "cpu"):
         return ref_fn
     return kernel_fn
+
+
+def sgd_step_tree(w_tree, g_tree, eta: float, mode: str = "auto"):
+    """Option A step w ← w − η·g over a params tree, one pass per leaf."""
+    return tree_map(
+        lambda w, g: _pick(K.sgd_step, R.sgd_step_ref, mode, w)(w, g, eta),
+        w_tree, g_tree)
+
+
+def prox_inner_tree(theta_tree, g_tree, w_tree, eta_in: float, lam: float,
+                    mode: str = "auto"):
+    """Option C inner step θ ← θ − η_in·(g + λ·(θ − w)) over a params tree,
+    one pass per leaf."""
+    return tree_map(
+        lambda t, g, w: _pick(K.prox_inner, R.prox_inner_ref, mode, t)(
+            t, g, w, eta_in, lam), theta_tree, g_tree, w_tree)
+
+
+def prox_outer_tree(w_tree, theta_tree, eta: float, lam: float,
+                    mode: str = "auto"):
+    """Option C outer step w ← w − (ηλ)·(w − θ) over a params tree, one pass
+    per leaf."""
+    return tree_map(
+        lambda w, t: _pick(K.prox_outer, R.prox_outer_ref, mode, w)(
+            w, t, eta, lam), w_tree, theta_tree)
 
 
 def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):

@@ -1,12 +1,20 @@
-"""Plain PyTorch versions of the server-apply kernels.
+"""Plain PyTorch versions of the fused-update kernels.
 
+Option A step:   w ← w − η·g
+Option C inner:  θ ← θ − η_in·(g + λ·(θ − w))
+Option C outer:  w ← w − (ηλ)·(w − θ)
 Server apply:  w ← w − s·Δ
 Stacked apply: w ← w − Σᵢ sᵢ·Δᵢ   (fp32 bank rows, one reduction)
 Quantized:     w ← w − Σᵢ (sᵢ·scaleᵢ)·qᵢ   (int8 bank rows, f32 row scales)
 
-The arithmetic is f32 and the result keeps ``w``'s storage dtype, as in
-``src/repro/kernels/fused_update/ref.py``.  These run for CPU tensors (the
-tests), and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+The arithmetic is f32 and the result keeps the first operand's storage
+dtype, as in ``src/repro/kernels/fused_update/ref.py``.  Host scalars are
+rounded to f32 where the reference's weakly typed Python floats are: each
+of η, η_in and λ on its own, but ηλ of the outer step as one Python double
+product rounded once (``eta * lam * (w − θ)`` multiplies the two floats
+before the array), which differs from f32(η)·f32(λ) in the last bit for
+some pairs (η = 0.01, λ = 20).  These run for CPU tensors (the tests),
+and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -14,10 +22,34 @@ import numpy as np
 import torch
 
 
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def sgd_step_ref(w: torch.Tensor, g: torch.Tensor, eta: float
+                 ) -> torch.Tensor:
+    """Option A step w ← w − η·g."""
+    return (w.float() - _f32(eta) * g.float()).to(w.dtype)
+
+
+def prox_inner_ref(theta: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                   eta_in: float, lam: float) -> torch.Tensor:
+    """Option C inner step θ ← θ − η_in·(g + λ·(θ − w))."""
+    t32 = theta.float()
+    return (t32 - _f32(eta_in) * (g.float() + _f32(lam) * (t32 - w.float()))
+            ).to(theta.dtype)
+
+
+def prox_outer_ref(w: torch.Tensor, theta: torch.Tensor, eta: float,
+                   lam: float) -> torch.Tensor:
+    """Option C outer step w ← w − (ηλ)·(w − θ), ηλ rounded to f32 once."""
+    w32 = w.float()
+    return (w32 - _f32(eta * lam) * (w32 - theta.float())).to(w.dtype)
+
+
 def apply_scaled_ref(w: torch.Tensor, d: torch.Tensor, scale) -> torch.Tensor:
     """Server apply w ← w − s·Δ, with ``s`` rounded to f32 first."""
-    s = float(np.float32(scale))
-    return (w.float() - s * d.float()).to(w.dtype)
+    return (w.float() - _f32(scale) * d.float()).to(w.dtype)
 
 
 def apply_rows_ref(w: torch.Tensor, d_stack: torch.Tensor,

@@ -132,7 +132,7 @@ def test_flrun_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(scheduler="device"), NotImplementedError),
-    (dict(strategy="scaffold"), NotImplementedError),
+    (dict(strategy="nope"), ValueError),
     (dict(schedule="bogus"), ValueError),
 ])
 def test_flrun_refuses_what_is_not_ported(kw, err):
@@ -144,8 +144,8 @@ def test_flrun_refuses_what_is_not_ported(kw, err):
               pcfg=PersAFLConfig(), delays=DelayModel(2), device="cpu", **kw)
     with pytest.raises(ValueError, match="robust"):
         buffered(4, robust="median")
-    assert {"persafl", "fedasync", "perfedavg", "pfedme"} <= set(
-        strategy_names())
+    assert {"persafl", "fedasync", "perfedavg", "pfedme", "fedprox",
+            "scaffold"} <= set(strategy_names())
 
 
 def test_run_budget_stop_and_final_eval():

@@ -1,7 +1,8 @@
-"""Port of the server-apply kernels (``repro_torch.kernels.fused_update``):
-the plain PyTorch versions against the JAX reference's plain versions and
-against its Pallas kernels run in interpret mode, plus the dispatch and the
-checks of the CUDA wrappers that hold without a card.
+"""Port of the fused-update kernels (``repro_torch.kernels.fused_update``),
+the local steps and the server applies: the plain PyTorch versions against
+the JAX reference's plain versions and against its Pallas kernels run in
+interpret mode, the tree fronts against the reference's, plus the dispatch
+and the checks of the CUDA wrappers that hold without a card.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against these plain versions there.
@@ -12,8 +13,14 @@ reductions sum the M rows in different orders); a bf16 output rtol 2^-7 /
 atol 1e-5, about one bf16 ulp (a sum rounded from a slightly different f32
 value).  The inputs make the update of the order of ``w``, so that a no-op
 or a sign-flipped apply fails these limits, which
-``test_tolerances_reject_noop_and_sign_flip`` holds.
+``test_tolerances_reject_noop_and_sign_flip`` holds.  The local steps
+(``sgd_step``, ``prox_inner``, ``prox_outer``) take the same limits: f32
+atol 1e-6, bf16 about one ulp, with η·|g| and ηλ·|w − θ| of the order of
+``|w|`` (at η = 0.01 and unit-normal g a no-op would pass one bf16 ulp),
+and the f32 plain versions must equal the reference's bit for bit, which
+is what tells the two roundings of the outer step's ηλ apart.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +33,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ops
 from repro_torch.kernels.fused_update import ref as R
+from repro_torch.tree import tree_leaves
+
+
+def jax_tree(tree):
+    return jax.tree.map(jnp.asarray, tree)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -84,6 +96,123 @@ def _rows_inputs(m, case):
     weights = (rng.rand(m) / np.sqrt(m)).astype(np.float32)
     weights[1::3] = 0.0      # zero-weight rows with finite contents: inert
     return w, stack, weights
+
+
+# the local steps: scalars as the paper's Options A and C use them (Option A
+# η, Option C's η_in and λ), η = 0.01 and λ = 20 being a pair whose f64
+# product rounds to another f32 than f32(η)·f32(λ); g scaled so that each
+# update is of the order of w
+LOCAL = {"sgd_step": (dict(eta=0.01), 50.0),
+         "prox_inner": (dict(eta_in=0.02, lam=20.0), 25.0),
+         "prox_outer": (dict(eta=0.01, lam=20.0), None)}
+
+
+def _local_inputs(kind, shape, case):
+    """The step's tensor operands, first operand (the output's dtype) first:
+    (w, g), (θ, g, w) or (w, θ); the second dtype of ``case`` goes to every
+    other operand."""
+    first, other = (DTYPES[d][0] for d in CASES[case])
+    rng = np.random.RandomState(sum(shape) + len(kind))
+    x = rng.randn(*shape)
+    g_scale = LOCAL[kind][1]
+    if kind == "sgd_step":
+        ops_ = [x, g_scale * rng.randn(*shape)]
+    elif kind == "prox_inner":
+        ops_ = [x, g_scale * rng.randn(*shape), rng.randn(*shape)]
+    else:
+        ops_ = [x, rng.randn(*shape)]
+    return [jnp.asarray(a, first if i == 0 else other)
+            for i, a in enumerate(ops_)]
+
+
+def _local(kind, pkg, arrays):
+    """One local step through ``pkg``'s ref module (``JR`` or ``R``) or the
+    Pallas kernels (``JK``, interpret mode)."""
+    kw = dict(LOCAL[kind][0])
+    if pkg is JK:
+        kw["interpret"] = True
+    fn = getattr(pkg, kind if pkg is JK else kind + "_ref")
+    return fn(*arrays, **kw)
+
+
+@pytest.mark.parametrize("shape", [(17,), (1000, 257), (3, 5, 7)])
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kind", list(LOCAL))
+def test_local_step_ref_matches_jax_ref_and_pallas(kind, shape, case):
+    arrays = _local_inputs(kind, shape, case)
+    want_ref = _local(kind, JR, arrays)
+    want_pallas = _local(kind, JK, arrays)
+    got = _local(kind, R, _port(*arrays))
+    assert got.dtype == DTYPES[CASES[case][0]][1]
+    assert tuple(got.shape) == shape
+    tol = _tol("scaled", CASES[case][0])
+    np.testing.assert_allclose(_f32(got), _f32(want_ref), **tol)
+    np.testing.assert_allclose(_f32(got), _f32(want_pallas), **tol)
+    if case == "float32":
+        # the scalars are rounded where the reference rounds them: bit-equal
+        np.testing.assert_array_equal(_f32(got), _f32(want_ref))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kind", list(LOCAL))
+def test_local_step_tolerances_reject_noop_and_sign_flip(kind, case):
+    arrays = _local_inputs(kind, (1000, 257), case)
+    want = _local(kind, JR, arrays)
+    x = arrays[0]
+    tol = _tol("scaled", CASES[case][0])
+    flipped = (2 * x.astype(jnp.float32) - want.astype(jnp.float32)
+               ).astype(x.dtype)
+    for wrong in (x, flipped):
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(_f32(wrong), _f32(want), **tol)
+
+
+def test_prox_outer_rounds_eta_lam_once():
+    """ηλ is the f64 product rounded to f32 once, as the reference's
+    ``eta * lam * (w − θ)`` forms it; f32(η)·f32(λ) is another f32 for
+    η = 0.01, λ = 20 and moves outputs by an ulp, which the bit-equality
+    with the reference catches."""
+    eta, lam = LOCAL["prox_outer"][0]["eta"], LOCAL["prox_outer"][0]["lam"]
+    assert np.float32(eta * lam) != np.float32(eta) * np.float32(lam)
+    w, th = _local_inputs("prox_outer", (1000, 257), "float32")
+    want = np.asarray(JR.prox_outer_ref(w, th, eta, lam))
+    tw, tth = _port(w, th)
+    got = R.prox_outer_ref(tw, tth, eta, lam).numpy()
+    np.testing.assert_array_equal(got, want)
+    w32, th32 = np.asarray(w), np.asarray(th)
+    twice = w32 - (np.float32(eta) * np.float32(lam)) * (w32 - th32)
+    assert np.any(twice != want)
+
+
+def _nested(rng, scale=1.0, dtype=np.float32):
+    return {"conv": [{"b": (scale * rng.randn(3)).astype(dtype),
+                      "w": (scale * rng.randn(2, 2, 3)).astype(dtype)}],
+            "fc": [{"w": (scale * rng.randn(5, 4)).astype(dtype)},
+                   {"b": (scale * rng.randn(7)).astype(dtype)}]}
+
+
+@pytest.mark.parametrize("mode", ["ref", "auto"])
+@pytest.mark.parametrize("kind", list(LOCAL))
+def test_local_tree_fronts_match_reference(kind, mode):
+    from repro.kernels.fused_update import ops as jops
+    rng = np.random.RandomState(3)
+    w, th = _nested(rng), _nested(rng)
+    g = _nested(rng, scale=25.0)
+    kw = LOCAL[kind][0]
+    trees = {"sgd_step": (w, g), "prox_inner": (th, g, w),
+             "prox_outer": (w, th)}[kind]
+    want = getattr(jops, kind + "_tree")(
+        *[jax_tree(t) for t in trees], **kw, mode="ref")
+    got = getattr(ops, kind + "_tree")(
+        *[params_from_jax(t, "cpu") for t in trees], **kw, mode=mode)
+    want_leaves = jax.tree.leaves(want)
+    got_leaves = tree_leaves(got)
+    assert len(got_leaves) == len(want_leaves) == 4
+    # the reference's fronts are jitted, and XLA contracts the fused
+    # multiply and subtract into one FMA there: an ulp apart at most
+    for a, b in zip(got_leaves, want_leaves):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_TOL)
+    assert all(v == 0 for v in K.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("shape", [(5,), (8192 + 5,), (3, 3, 8, 16)])
@@ -152,7 +281,8 @@ def test_tree_fronts_auto_on_cpu_take_the_plain_version():
     out = ops.apply_rows_tree(w, stack, torch.tensor([0.25, 0.5]))
     np.testing.assert_allclose(out["b"][0].numpy(), (w["b"][0] - 0.75).numpy(),
                                **F32_TOL)
-    assert K.LAUNCHES == {"apply_scaled": 0, "apply_rows": 0,
+    assert K.LAUNCHES == {"sgd_step": 0, "prox_inner": 0, "prox_outer": 0,
+                          "apply_scaled": 0, "apply_rows": 0,
                           "apply_rows_q": 0}
 
 
@@ -164,6 +294,11 @@ def test_tree_fronts_refuse_kernel_on_cpu_and_unknown_modes(mode):
     with pytest.raises(ValueError):
         ops.apply_rows_tree(w, {"a": torch.ones(2, 3)}, torch.ones(2),
                             mode=mode)
+    for front, args in ((ops.sgd_step_tree, (w, w, 0.1)),
+                        (ops.prox_inner_tree, (w, w, w, 0.1, 2.0)),
+                        (ops.prox_outer_tree, (w, w, 0.1, 2.0))):
+        with pytest.raises(ValueError):
+            front(*args, mode=mode)
 
 
 def test_wrappers_check_inputs_before_building():
@@ -174,6 +309,14 @@ def test_wrappers_check_inputs_before_building():
         K.apply_rows(torch.zeros(4), torch.zeros(2, 4), torch.zeros(2))
     with pytest.raises(TypeError, match="torch.Tensor"):
         K.apply_scaled(np.zeros(4), torch.zeros(4), 1.0)
+    x = torch.zeros(4)
+    for call in (lambda: K.sgd_step(x, x, 0.1),
+                 lambda: K.prox_inner(x, x, x, 0.1, 2.0),
+                 lambda: K.prox_outer(x, x, 0.1, 2.0)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call()
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        K.prox_inner([0.0] * 4, x, x, 0.1, 2.0)
 
 
 def test_build_without_nvcc_raises(monkeypatch):

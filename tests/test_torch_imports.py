@@ -57,5 +57,6 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.models.attention",
-                 "repro_torch.launch.steps", "repro_torch.launch.serve"):
+                 "repro_torch.launch.steps", "repro_torch.launch.serve",
+                 "repro_torch.fl.algorithms"):
         assert name in out["modules"]

@@ -28,14 +28,25 @@ Phases; any failure exits non-zero and prints no result line:
      check, each per-row case that row 0's a_log for every row does, each
      windowed attention case that the output without the window does, and
      each softcap case that the output without the softcap does.
-     The local steps ``sgd_step``, ``prox_inner`` and ``prox_outer``
-     through their tree fronts (``ops.<name>_tree``, the entry points that
-     run them, as in the reference), ``mode="kernel"`` against
-     ``mode="ref"`` within TOLS: at the CNN's 8 leaves, at LOCAL_CASES
-     (n = 2^26+3; f32, bf16, f32 with bf16 other operands) and at the full
-     param trees of mamba2-130m (12 leaves) and zamba2-1.2b (21 leaves),
-     f32; launch counts zeroed just before each checked call and read just
-     after.
+     ``apply_scaled`` runs through its tree front ``ops.apply_delta_tree``,
+     the main path's entry point.  The local steps ``sgd_step``,
+     ``prox_inner`` and ``prox_outer`` through their tree fronts
+     (``ops.<name>_tree``, the entry points that run them, as in the
+     reference), ``mode="kernel"`` against ``mode="ref"`` within TOLS: at
+     the CNN's 8 leaves, at LOCAL_CASES (n = 2^26+3; f32, bf16, f32 with
+     bf16 other operands) and at the full param trees of mamba2-130m (12
+     leaves) and zamba2-1.2b (21 leaves), f32.  Every checked call's
+     launches are counted (zeroed just before, read just after) and must
+     be the planned count: one per non-empty leaf, and for the leaf-table
+     kernels ``apply_scaled`` and ``sgd_step`` one per dtype pair and chunk
+     of ``max_leaves()`` leaves.  Both also run on TABLE_SIZES' awkward
+     trees (empty, 1-9 element and 2^20+5 element leaves, views 4 bytes
+     past a 16-byte boundary, a mixed f32/bf16 pair) and on a tree of
+     3·max_leaves()+1 leaves, f32 and bf16, NaN-poisoned outputs: error 0.
+     The CNN rows also time ``torch._foreach_add`` over the tree
+     (``foreach_ms``), per-leaf ``torch.empty_like`` against one flat
+     buffer with leaf views, and the host time of each step of the front
+     (``host_us``).
      Times are medians of CUDA-event timings; ``bound_ms`` is the larger of
      the bytes the function must move over the H100 SXM's 3.35 TB/s and its
      FLOPs over the card's peak for the operands' type (for ``ssd_fwd`` and
@@ -44,8 +55,8 @@ Phases; any failure exits non-zero and prints no result line:
      ceiling of the kernels' present design, beside it; ``library_ms``
      times one PyTorch call that
      computes the same function (a yardstick the port never calls; none
-     exists for the scan, for attention with a softcap, for ``prox_inner``
-     or for mixed dtypes).
+     exists for the scan, for attention with a softcap, for ``prox_inner``,
+     for the int8 stack or, except ``torch.add``, for mixed dtypes).
   3. main path -- PersA-FL asynchronous training of the paper CNN on
      label-skewed synthetic MNIST (the fig2 setup of
      ``benchmarks/common.py``: 30 clients, 5 classes each, batch 16, Q = 10,
@@ -54,7 +65,9 @@ Phases; any failure exits non-zero and prints no result line:
      rounds; (c) Option B full, immediate, 10 rounds; (d) Option A,
      η = 0.01, sync_barrier(10), 5 rounds.  The launch counters are zeroed
      just before (a) and read just after (d).
-  4. checks  -- both kernels were launched in (a)-(d), params are finite,
+  4. checks  -- both kernels were launched in (a)-(d), ``apply_scaled``
+     once per immediate apply (the CNN's 8 leaves are one table), params
+     are finite,
      and the first 8 rounds of (a) and (b), run on the card and on the CPU,
      give the same event timeline and params within PARAM_ATOL.
   5. serving -- (e) the personalization server on the same 30 users
@@ -101,8 +114,9 @@ Phases; any failure exits non-zero and prints no result line:
      rounds and under buffered(8) for 20 server rounds; counts zeroed just
      before and read just after.  Checks: finite params, accuracy in
      [0, 1], no host materialization, ``apply_rows`` launched; then 2
-     rounds of each sync run on the card and on the CPU: identical
-     timeline, params and SCAFFOLD's c_global within PARAM_ATOL.
+     rounds of each sync run twice on the card and once on the CPU:
+     identical timeline, params and SCAFFOLD's c_global within PARAM_ATOL,
+     and the card-against-card spread printed.
 
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
@@ -110,6 +124,7 @@ line before the last, and as the last line
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import statistics
@@ -196,6 +211,9 @@ LOCAL_STEPS = {"sgd_step": (dict(eta=0.01), 50.0),
 # leaves and the two LMs' full param trees
 LOCAL_CASES = ((2 ** 26 + 3, "f32", "f32"), (2 ** 26 + 3, "bf16", "bf16"),
                (2 ** 26 + 3, "f32", "bf16"))
+# the kernels that take a whole param tree in one launch, through a table of
+# leaves
+TABLE_KERNELS = ("apply_scaled", "sgd_step")
 FIG2 = dict(q_local=10, beta=1.0, alpha=0.01, lam=25.0, inner_steps=10,
             inner_eta=0.02, maml_mode="full")
 # serving phase (e): the quant bench's convergence configuration
@@ -236,20 +254,34 @@ def time_ms(torch, fn, launches: int = 20, repeats: int = 5,
     """Time of one call of ``fn``: CUDA events around ``launches`` calls in
     a row, over the count, median of ``repeats`` such runs.  Where a call's
     host work outlasts its kernel, this is the host's time per call."""
-    for _ in range(warmup):
-        fn()
+    return time_interleaved(torch, {"fn": fn}, launches, repeats,
+                            warmup)["fn"]
+
+
+def time_interleaved(torch, fns, launches: int = 20, repeats: int = 9,
+                     warmup: int = 3):
+    """:func:`time_ms` of each callable of ``fns`` (name -> callable, or
+    None), their runs taken in turn, forwards then backwards, so that a
+    drift of the host's speed (the card's machine shares its cores) reaches
+    each alike.  Returns name -> ms, None for None."""
+    live = [(k, f) for k, f in fns.items() if f is not None]
+    for _, f in live:
+        for _ in range(warmup):
+            f()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
+    times = {k: [] for k, _ in live}
+    for r in range(repeats):
+        for k, f in (live if r % 2 == 0 else live[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                f()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / launches)
+    return {k: statistics.median(times[k]) if k in times else None
+            for k in fns}
 
 
 def leaves_close(torch, got, want, tol):
@@ -262,8 +294,79 @@ def leaves_close(torch, got, want, tol):
     return err, ok
 
 
+def planned_launches(K, name, firsts, others) -> int:
+    """Launches a front makes for its leaves: the leaf-table kernels
+    (TABLE_KERNELS) one per dtype pair and chunk of ``K.max_leaves()``
+    non-empty leaves, the others one per non-empty leaf."""
+    if name not in TABLE_KERNELS:
+        return sum(1 for x in firsts if x.numel())
+    pairs = collections.Counter((a.dtype, b.dtype)
+                                for a, b in zip(firsts, others) if a.numel())
+    return sum(-(-c // K.max_leaves()) for c in pairs.values())
+
+
+def host_us(torch, fns, calls: int = 200, repeats: int = 9):
+    """Host microseconds per call of each callable of ``fns`` (name ->
+    callable): the host clock around ``calls`` calls, the card's queue
+    drained first, the callables in turn as in :func:`time_interleaved`;
+    median of ``repeats``."""
+    fns = list(fns.items())
+    for _, f in fns:
+        f()
+    times = {k: [] for k, _ in fns}
+    for r in range(repeats):
+        for k, f in (fns if r % 2 == 0 else fns[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                f()
+            times[k].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def front_host_breakdown(torch, K, ops, ws, ds, s):
+    """Where the host time of ``ops.apply_delta_tree(mode="kernel")`` goes
+    on a tree (a dict of the leaves ``ws``, ``ds``): each step of the front
+    timed alone, beside the whole front, one ``torch.add`` per leaf and
+    ``torch._foreach_add``."""
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    wt = {f"{i:02d}": w for i, w in enumerate(ws)}
+    dt = {f"{i:02d}": d for i, d in enumerate(ds)}
+    outs = [torch.empty_like(w) for w in ws]
+    args = (("w", ws), ("d", ds))
+    plan = K.plan_launches("apply_scaled", args, outs, K.max_leaves())
+    fn, dev = K._lib().fu_sub_scaled_leaves, ws[0].get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+
+    def launch():
+        for launch in plan:
+            fn(launch.words.buffer_info()[0], len(launch.leaves), s,
+               *launch.codes, stream)
+
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+    steps = {
+        "front": lambda: ops.apply_delta_tree(wt, dt, s, mode="kernel"),
+        "tree_leaves x2": lambda: (tree_leaves(wt), tree_leaves(dt)),
+        "tree_unflatten": lambda: tree_unflatten(wt, outs),
+        "empty_like": lambda: [torch.empty_like(w) for w in ws],
+        "check and plan": lambda: K.plan_launches("apply_scaled", args, outs,
+                                                  K.max_leaves()),
+        "device context": device_ctx,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "ctypes launch": launch,
+        "torch.add per leaf": lambda: [torch.add(w, d, alpha=-s)
+                                       for w, d in zip(ws, ds)],
+        "torch._foreach_add": lambda: torch._foreach_add(ws, ds, alpha=-s),
+    }
+    return host_us(torch, steps)
+
+
 def kernel_phase(torch, cnn_shapes, lm_cases=()):
     from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.fused_update import ops
     from repro_torch.kernels.fused_update import ref as R
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -288,14 +391,20 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
                             TOLS["bf16" if want[0].dtype == bf16 else name])
 
     def run_case(name, label, ws, ds, extra):
-        """One shape: a list of leaves, applied one launch per leaf."""
+        """One shape: a list of leaves.  apply_scaled goes through its tree
+        front, the main path's entry point (one launch per tree); the
+        stacked applies launch once per leaf."""
+        foreach = None
         if name == "apply_scaled":
             s = extra
-            kern = lambda: [K.apply_scaled(w, d, s) for w, d in zip(ws, ds)]  # noqa
-            plain = lambda: [R.apply_scaled_ref(w, d, s)  # noqa: E731
-                             for w, d in zip(ws, ds)]
+            kern = lambda: ops.apply_delta_tree(ws, ds, s, mode="kernel")  # noqa
+            plain = lambda: ops.apply_delta_tree(ws, ds, s,  # noqa: E731
+                                                 mode="ref")
             lib = lambda: [torch.add(w, d, alpha=-s)  # noqa: E731
                            for w, d in zip(ws, ds)]
+            if all(w.dtype == d.dtype for w, d in zip(ws, ds)):
+                # the one PyTorch call over the whole tree
+                foreach = lambda: torch._foreach_add(ws, ds, alpha=-s)  # noqa
             nbytes = sum(2 * w.numel() * w.element_size()
                          + d.numel() * d.element_size()
                          for w, d in zip(ws, ds))
@@ -332,8 +441,13 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
         torch.cuda.empty_cache()
         poison = [torch.full_like(w, float("nan")) for w in ws]
         del poison
+        planned = planned_launches(K, name, ws, ds)
+        K.reset_launches()
         got = kern()
+        launched = K.LAUNCHES[name]
         torch.cuda.synchronize()
+        check(launched == planned, f"{name} {label}: {launched} launches, "
+                                   f"{planned} planned")
         err, ok = close(name, got, want)
         check(ok, f"{name} {label}: kernel disagrees with its plain version "
                   f"(max abs err {err})")
@@ -348,15 +462,20 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
               f"(err {noop_err}) or a sign flip (err {flip_err}) from the "
               f"plain version")
         del got, want, flipped
+        t = time_interleaved(torch, {"ms": kern, "plain_ms": plain,
+                                     "library_ms": lib,
+                                     "foreach_ms": foreach})
         row = {"shape": label, "max_abs_err": err,
                "noop_err": noop_err, "sign_flip_err": flip_err,
-               "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+               "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes",
-               "library_ms": None if lib is None else time_ms(torch, lib),
-               "launches_per_call": len(ws)}
+               "bound_by": "bytes", "library_ms": t["library_ms"],
+               "launches_per_call": planned}
+        if name == "apply_scaled":
+            row["foreach_ms"] = t["foreach_ms"]
         results[name].append(row)
         print(f"kernel {name} {label}: {json.dumps(row)}", flush=True)
+        return row
 
     dtypes = {"f32": f32, "bf16": bf16}
 
@@ -366,7 +485,28 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
     # the main path's shapes: the MNIST CNN's 8 leaves, one launch each
     ws = [randn(*sh, scale=0.5) for sh in cnn_shapes]
     ds = [randn(*sh, scale=0.5) for sh in cnn_shapes]
-    run_case("apply_scaled", "MNIST_CNN 8 leaves f32", ws, ds, 0.7)
+    row = run_case("apply_scaled", "MNIST_CNN 8 leaves f32", ws, ds, 0.7)
+    # the front's outputs: one torch.empty_like per leaf, against one flat
+    # buffer cut into leaf views (each view's offset rounded up to 16 bytes)
+    sizes = [w.numel() for w in ws]
+    padded = [-(-n // 4) * 4 for n in sizes]
+
+    def flat_views():
+        flat = torch.empty(sum(padded), device=dev)
+        return [v[:n].view(w.shape) for v, n, w
+                in zip(flat.split(padded), sizes, ws)]
+    t = time_interleaved(torch, {
+        "alloc_ms": lambda: [torch.empty_like(w) for w in ws],
+        "flat_alloc_ms": flat_views, "front_ms": lambda: ops.apply_delta_tree(
+            ws, ds, 0.7, mode="kernel")})
+    row.update(alloc_ms=t["alloc_ms"], flat_alloc_ms=t["flat_alloc_ms"])
+    print(f"kernel apply_scaled MNIST_CNN outputs: per-leaf empty_like "
+          f"{row['alloc_ms']:.5f} ms, one flat buffer with leaf views "
+          f"{row['flat_alloc_ms']:.5f} ms, the front {t['front_ms']:.5f} ms",
+          flush=True)
+    row["host_us"] = front_host_breakdown(torch, K, ops, ws, ds, 0.7)
+    print(f"kernel apply_scaled MNIST_CNN front, host us per call: "
+          f"{json.dumps(row['host_us'])}", flush=True)
     for m in (8, 16, 64):
         stacks = [randn(m, *sh) for sh in cnn_shapes]
         run_case("apply_rows", f"MNIST_CNN 8 leaves M={m} f32", ws, stacks,
@@ -460,14 +600,24 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
 
     def library(name, trees, kw):
         """One PyTorch call per leaf computing the same function, where
-        one exists and the dtypes agree (neither call mixes them)."""
-        if name == "prox_inner" or trees[0][0].dtype != trees[1][0].dtype:
-            return None
+        one exists: torch.add promotes a bf16 g to w's f32, torch.lerp
+        takes one dtype."""
+        same = trees[0][0].dtype == trees[1][0].dtype
         if name == "sgd_step":
             return lambda: [torch.add(w, gg, alpha=-kw["eta"])
                             for w, gg in zip(*trees)]
-        return lambda: [torch.lerp(w, t, kw["eta"] * kw["lam"])
-                        for w, t in zip(*trees)]
+        if name == "prox_outer" and same:
+            return lambda: [torch.lerp(w, t, kw["eta"] * kw["lam"])
+                            for w, t in zip(*trees)]
+        return None
+
+    def foreach(name, trees, kw):
+        """The one PyTorch call over the whole tree, for sgd_step's trees of
+        one dtype."""
+        if name != "sgd_step" or trees[0][0].dtype != trees[1][0].dtype:
+            return None
+        return lambda: torch._foreach_add(trees[0], trees[1],
+                                          alpha=-kw["eta"])
 
     def run_case(name, label, shapes, first, other):
         kw = LOCAL_STEPS[name][0]
@@ -479,12 +629,14 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
         torch.cuda.empty_cache()
         poison = [torch.full_like(x, float("nan")) for x in trees[0]]
         del poison
+        planned = planned_launches(K, name, trees[0], trees[1])
         K.reset_launches()
         got = front(*trees, **kw, mode="kernel")
         n = K.LAUNCHES[name]
         torch.cuda.synchronize()
-        check(n == len(shapes), f"{name} {label}: {n} launches through "
-                                f"{name}_tree for {len(shapes)} leaves")
+        check(n == planned, f"{name} {label}: {n} launches through "
+                            f"{name}_tree for {len(shapes)} leaves, "
+                            f"{planned} planned")
         launches[name] += n
         tol = TOLS["bf16" if dtypes[first] == torch.bfloat16 else name]
         err, ok = leaves_close(torch, got, want, tol)
@@ -505,18 +657,19 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
                      for tree in trees for x in tree) \
             + sum(x.numel() * x.element_size() for x in trees[0])
         calls = 20 if numel < 10 ** 8 else 5
-        lib = library(name, trees, kw)
+        lib, each = library(name, trees, kw), foreach(name, trees, kw)
+        t = time_interleaved(torch, {
+            "ms": lambda: front(*trees, **kw, mode="kernel"),
+            "plain_ms": lambda: front(*trees, **kw, mode="ref"),
+            "library_ms": lib, "foreach_ms": each}, calls)
         row = {"shape": label, "max_abs_err": err, "noop_err": noop_err,
-               "sign_flip_err": flip_err,
-               "ms": time_ms(torch, lambda: front(*trees, **kw,
-                                                  mode="kernel"), calls),
-               "plain_ms": time_ms(torch, lambda: front(*trees, **kw,
-                                                        mode="ref"), calls),
+               "sign_flip_err": flip_err, "ms": t["ms"],
+               "plain_ms": t["plain_ms"],
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes",
-               "library_ms": None if lib is None
-               else time_ms(torch, lib, calls),
-               "launches_per_call": len(shapes), "params": numel}
+               "bound_by": "bytes", "library_ms": t["library_ms"],
+               "launches_per_call": planned, "params": numel}
+        if name == "sgd_step":
+            row["foreach_ms"] = t["foreach_ms"]
         results[name].append(row)
         print(f"kernel {name} {label}: {json.dumps(row)}", flush=True)
         del trees
@@ -532,6 +685,101 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
     print(f"local steps through their tree fronts, launches: "
           f"{json.dumps(launches)}", flush=True)
     return results, launches
+
+
+# trees that probe the leaf table: leaves of these sizes (none, one, less
+# than, exactly and more than a thread's 8 elements, and 512 tiles of 2048
+# and a ragged tail), then two leaves of VIEW_N elements (3 tiles and a
+# tail) with w, then d, a view 4 bytes into its buffer (no 16-byte vectors
+# there), and one leaf of MIXED_N elements whose second operand has the
+# other dtype: two launches; and a tree of 3 * max_leaves + 1 leaves, four
+TABLE_SIZES = (0, 1, 7, 8, 9, 2 ** 20 + 5)
+VIEW_N, MIXED_N = 3 * 2048 + 5, 2 ** 16 + 3
+
+
+def table_tree_phase(torch):
+    """``apply_scaled`` and ``sgd_step`` through their tree fronts
+    (``mode="kernel"`` against ``mode="ref"``) on the trees of TABLE_SIZES
+    and on a tree of ``3 * max_leaves() + 1`` leaves, f32 and bf16, outputs
+    NaN-poisoned first: error 0, the planned launches, and a no-op and a
+    sign flip rejected.  Returns rows per kernel."""
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.fused_update import ops
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    # front, scalar, scale of the second operand (update of the order of w)
+    fronts = {"apply_scaled": (ops.apply_delta_tree, 0.7, 0.5),
+              "sgd_step": (ops.sgd_step_tree,
+                           LOCAL_STEPS["sgd_step"][0]["eta"],
+                           0.5 * LOCAL_STEPS["sgd_step"][1])}
+    rows = {name: [] for name in TABLE_KERNELS}
+
+    def randn(n, scale, dtype, offset_bytes=0):
+        """n elements; with ``offset_bytes`` a view that far into a buffer."""
+        off = offset_bytes // torch.empty((), dtype=dtype).element_size()
+        x = (scale * torch.randn(n + off, device="cuda", generator=g)
+             ).to(dtype)
+        return x[off:]
+
+    def awkward(first, other, b_scale):
+        ws = [randn(n, 0.5, first) for n in TABLE_SIZES]
+        bs = [randn(n, b_scale, first) for n in TABLE_SIZES]
+        ws += [randn(VIEW_N, 0.5, first, 4), randn(VIEW_N, 0.5, first)]
+        bs += [randn(VIEW_N, b_scale, first), randn(VIEW_N, b_scale, first, 4)]
+        check(ws[-2].data_ptr() % 16 == 4 and bs[-1].data_ptr() % 16 == 4,
+              "table trees: the views do not sit 4 bytes past 16")
+        ws.append(randn(MIXED_N, 0.5, first))
+        bs.append(randn(MIXED_N, b_scale, other))
+        return ws, bs
+
+    def long_tree(first, b_scale):
+        sizes = [1 + (i * 997) % 5000 for i in range(3 * K.max_leaves() + 1)]
+        return ([randn(n, 0.5, first) for n in sizes],
+                [randn(n, b_scale, first) for n in sizes])
+
+    for name in TABLE_KERNELS:
+        front, c, b_scale = fronts[name]
+        for dn, first in dtypes.items():
+            other = dtypes["bf16" if dn == "f32" else "f32"]
+            tol = TOLS["bf16" if first == torch.bfloat16 else name]
+            for label, (ws, bs) in (
+                    (f"table tree {dn} (sizes {list(TABLE_SIZES)}, 2 views "
+                     f"4 bytes in, 1 mixed pair)",
+                     awkward(first, other, b_scale)),
+                    (f"table tree {dn} {3 * K.max_leaves() + 1} leaves",
+                     long_tree(first, b_scale))):
+                want = front(ws, bs, c, mode="ref")
+                torch.cuda.empty_cache()
+                poison = [torch.full_like(w, float("nan")) for w in ws]
+                del poison
+                planned = planned_launches(K, name, ws, bs)
+                K.reset_launches()
+                got = front(ws, bs, c, mode="kernel")
+                launched = K.LAUNCHES[name]
+                torch.cuda.synchronize()
+                check(launched == planned, f"{name} {label}: {launched} "
+                                           f"launches, {planned} planned")
+                err, ok = leaves_close(torch, got, want, tol)
+                check(ok and err == 0.0, f"{name} {label}: kernel differs "
+                                         f"from its plain version (max abs "
+                                         f"err {err})")
+                flipped = [(2 * w.float() - o.float()).to(w.dtype)
+                           for w, o in zip(ws, want)]
+                noop_err, noop_ok = leaves_close(torch, ws, want, tol)
+                flip_err, flip_ok = leaves_close(torch, flipped, want, tol)
+                check(not noop_ok and not flip_ok,
+                      f"{name} {label}: the tolerance cannot tell a no-op "
+                      f"(err {noop_err}) or a sign flip (err {flip_err}) "
+                      f"from the plain version")
+                row = {"shape": label, "max_abs_err": err,
+                       "noop_err": noop_err, "sign_flip_err": flip_err,
+                       "launches_per_call": launched, "leaves": len(ws)}
+                rows[name].append(row)
+                print(f"kernel {name} {label}: {json.dumps(row)}", flush=True)
+                del ws, bs, want, got, flipped
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ssd_fwd against ssd_ref on the card, as the reference's own
@@ -1000,6 +1248,13 @@ def main_path(torch, setup):
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
+    # one apply_scaled launch per immediate apply: the CNN's 8 leaves are
+    # one table
+    applies = sum(RUNS[name][3] for name in RUNS
+                  if RUNS[name][2] == ("immediate",))
+    check(launches["apply_scaled"] == applies,
+          f"apply_scaled launched {launches['apply_scaled']} times for "
+          f"{applies} immediate applies")
     return launches, hists
 
 
@@ -1132,9 +1387,12 @@ def baselines_phase(torch, setup):
         return max(float((x.cpu() - y.cpu()).abs().max())
                    for x, y in zip(tree_leaves(a), tree_leaves(b)))
     for key in ("fedprox sync_barrier(10)", "scaffold sync_barrier(10)"):
-        runs = {dev: baseline_run(setup, key, dev) for dev in ("cuda", "cpu")}
-        hists = {dev: r.run(max_rounds=2, eval_every=1, eval_fn=ev)
-                 for dev, r in runs.items()}
+        # the card twice, for its spread against itself
+        runs = {run: baseline_run(setup, key, dev) for run, dev in (
+            ("cuda", "cuda"), ("cuda again", "cuda"), ("cpu", "cpu"))}
+        hists = {run: r.run(max_rounds=2, eval_every=1, eval_fn=ev)
+                 for run, r in runs.items()}
+        spread = max_diff(runs["cuda"].params, runs["cuda again"].params)
         for field in ("times", "rounds", "staleness", "active_times",
                       "active_ratio", "end_time"):
             check(getattr(hists["cuda"], field)
@@ -1149,8 +1407,8 @@ def baselines_phase(torch, setup):
                                                   hists["cpu"].acc))
         print(f"parity (l) {key} 2 rounds: timeline identical, max |param "
               f"diff| {diff:.3e}, max |c_global diff| {cdiff:.3e} (tol "
-              f"{PARAM_ATOL}), acc card {hists['cuda'].acc} cpu "
-              f"{hists['cpu'].acc}", flush=True)
+              f"{PARAM_ATOL}), card vs card {spread:.3e}, acc card "
+              f"{hists['cuda'].acc} cpu {hists['cpu'].acc}", flush=True)
         check(diff <= PARAM_ATOL and cdiff <= PARAM_ATOL,
               f"(l) {key}: params differ by {diff}, c_global by {cdiff}")
         check(acc_diff <= ACC_ATOL, f"(l) {key}: accuracy differs by "
@@ -1749,6 +2007,8 @@ def run_phases(torch):
     local_rows, local_launches = local_step_phase(torch, cnn_shapes,
                                                   lm_trees)
     results.update(local_rows)
+    for name, rows in table_tree_phase(torch).items():
+        results[name] += rows
     results["ssd_fwd"] = ssd_kernel_phase(torch)
     results["flash_attention_fwd"] = flash_kernel_phase(torch)
     imm_ms = immediate_apply_ms(torch, setup[1])
@@ -1803,6 +2063,8 @@ def run_phases(torch):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"], "shapes": rows}
+        if name in TABLE_KERNELS:
+            entry["foreach_ms"] = main["foreach_ms"]
         if name == "ssd_fwd":
             entry["launches_int8"] = lm["int8"]["ssd_fwd_launches"]
             entry["launches_zamba2"] = {

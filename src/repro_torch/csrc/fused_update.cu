@@ -1,11 +1,12 @@
 // Fused-update kernels of PersA-FL for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (repro_torch/kernels/_build.py).
 //
-//   fu_sgd_step:     out = w - eta * g                  (Option A step)
+//   fu_sub_scaled_leaves: out = w - c * b over a table of up to kMaxLeaves
+//       leaves in ONE launch: sgd_step (w - eta * g, the Option A step) and
+//       apply_scaled (w - s * d, every immediate apply)
 //   fu_prox_inner:   out = t - eta_in * (g + lam * (t - w))
 //                                                     (Option C inner step)
 //   fu_prox_outer:   out = w - (eta*lam) * (w - t)      (Option C outer step)
-//   fu_apply_scaled: out = w - s * d              (every immediate apply)
 //   fu_apply_rows:   out = w - sum_i s_i * d_i    (every buffered / sync flush,
 //                                                 every fp32-banked window)
 //   fu_apply_rows_q: out = w - sum_i (s_i * scale_i) * q_i   (every int8-banked
@@ -27,10 +28,16 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 namespace {
 
 constexpr int kThreads = 256;
+// the leaf-table kernels: each thread moves kPerThread elements of a tile of
+// kTile, and one launch takes at most kMaxLeaves leaves
+constexpr int kPerThread = 8;
+constexpr int kTile = kThreads * kPerThread;
+constexpr int kMaxLeaves = 48;
 // apply_rows stages the row weights in shared memory this many at a time
 constexpr int kWeightChunk = 1024;
 
@@ -50,52 +57,201 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
   p[i] = __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-// Replaces src/repro/kernels/fused_update/kernel.py:229 apply_scaled (body
-// _apply_scaled_kernel at :95).  Bound: 2n elements read and n written, over
-// 3.35 TB/s; at the main path's 52K-element CNN leaves the launch itself
-// dominates.  Design: a grid-stride loop, one element per thread per step,
-// neighbouring threads on neighbouring addresses so every warp load coalesces.
-// The multiply and the subtraction are rounded separately (__fmul_rn,
-// __fsub_rn) so that the result is bit-equal to the plain version, which
-// computes s*d and then w - (s*d) as two f32 operations.
-template <typename TW, typename TD>
-__global__ void __launch_bounds__(kThreads)
-    apply_scaled_kernel(TW* __restrict__ out, const TW* __restrict__ w,
-                        const TD* __restrict__ d, float s, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    store_f32(out, i, __fsub_rn(load_f32(w, i), __fmul_rn(s, load_f32(d, i))));
+// ---------------------------------------------------------------------------
+// One launch over a table of leaves: sgd_step and apply_scaled
+// ---------------------------------------------------------------------------
+//
+// Replace src/repro/kernels/fused_update/kernel.py:78 sgd_step (body
+// _sgd_kernel at :39, run by _run_flat at :58) and :229 apply_scaled (body
+// _apply_scaled_kernel at :95).  Both compute out = a - c * b, a the params w
+// and b the gradient g or the delta d.  Bound: 2n elements read and n written
+// over 3.35 TB/s -- at n = 2^26+3 0.2404 ms in f32 and 0.1202 ms in bf16 --
+// and nothing else; at a param tree of small leaves (the MNIST CNN's 8, 52K
+// elements) the bound is 0.2 us and the time is the host's.  The reference
+// jits each tree front into one program; a launch per leaf costs a ctypes call
+// and a launch each.  Design:
+//   * one launch per param tree: the leaves travel by value, as a __grid_
+//     constant__ LeafTable of at most kMaxLeaves entries (out and input
+//     pointers, length, first tile, whether the leaf may be moved in
+//     vectors), under the 4 KB parameter limit.  __grid_constant__ lets a
+//     thread index the table with a run-time leaf number without copying the
+//     struct into local memory.  A longer tree, or one whose leaves mix dtype
+//     pairs, takes one launch per chunk and pair (the wrapper plans them);
+//   * the leaves are cut into tiles of kTile elements, none straddling two
+//     leaves, one block per tile; a block finds its tile's leaf by a scan of
+//     the table's tile prefix, the same for every thread of the block.  (A
+//     grid capped at a few waves, its blocks looping over tiles, ran slower
+//     on an H100 at the LM param trees, one persistent wave slower still);
+//   * where the wrapper found all of a leaf's pointers 16-byte aligned, a
+//     tile moves in chunks of 16 bytes of the widest operand (4 elements if
+//     any operand is f32, else 8 bf16), a narrower operand in proportionally
+//     narrower vectors.  Chunk k of thread t is chunk k * kThreads + t of the
+//     tile, so every warp instruction reads or writes one contiguous span, and
+//     a thread issues the loads of all its kPerThread elements before its
+//     first store.  In a leaf's last tile a chunk past the end goes element by
+//     element.  A leaf that is not aligned (a view at an odd offset) takes a
+//     scalar loop over its tiles, neighbouring threads on neighbouring
+//     addresses;
+//   * every operation is rounded on its own (__fmul_rn, __fsub_rn; nvcc would
+//     otherwise contract them into one FMA, rounded once), in the plain
+//     version's order, so the result is bit-equal to the plain version.  The
+//     host rounds the scalar to f32 as the plain version does.
+// The table and the tile take any number of inputs (a parameter pack), so
+// the other elementwise steps can run on them with an operator of their own.
+
+template <int kIn>
+struct LeafTable {
+  struct Leaf {
+    void* out;
+    const void* in[kIn];
+    int64_t n;      // elements, > 0
+    int32_t tile0;  // the leaf's first tile in the launch
+    int32_t vec;    // every pointer 16-byte aligned: vector loads and stores
+  } leaf[kMaxLeaves];
+  int32_t count;  // leaves in the table
+  int32_t tiles;  // tiles over all of them
+};
+static_assert(sizeof(LeafTable<2>) == 40 * kMaxLeaves + 8,
+              "a two-input leaf is 40 bytes");
+static_assert(sizeof(LeafTable<3>) + 16 <= 4096,
+              "the table and the scalars fit the 4 KB parameter limit");
+
+// out = a - c * b, the multiply and the subtraction rounded separately
+struct SubScaled {
+  float c;
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return __fsub_rn(a, __fmul_rn(c, b));
+  }
+};
+
+// kC elements of T that move as one vector load or store
+template <typename T, int kC>
+struct alignas(sizeof(T) * kC) Chunk {
+  T v[kC];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float& x, float v) { x = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& x, float v) {
+  x = __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+template <typename T, int kC>
+__device__ __forceinline__ void load_chunk(const void* p, int64_t i,
+                                           float (&v)[kC]) {
+  const Chunk<T, kC> c =
+      *reinterpret_cast<const Chunk<T, kC>*>(static_cast<const T*>(p) + i);
+#pragma unroll
+  for (int k = 0; k < kC; ++k) v[k] = to_f32(c.v[k]);
+}
+
+template <typename T, int kC>
+__device__ __forceinline__ void store_chunk(void* p, int64_t i,
+                                            const float (&v)[kC]) {
+  Chunk<T, kC> c;
+#pragma unroll
+  for (int k = 0; k < kC; ++k) from_f32(c.v[k], v[k]);
+  *reinterpret_cast<Chunk<T, kC>*>(static_cast<T*>(p) + i) = c;
+}
+
+// the size of the widest of the types
+template <typename T, typename... R>
+__host__ __device__ constexpr int widest() {
+  if constexpr (sizeof...(R) == 0) {
+    return sizeof(T);
+  } else {
+    return sizeof(T) > widest<R...>() ? sizeof(T) : widest<R...>();
   }
 }
 
-// The three local-step kernels replace src/repro/kernels/fused_update/
-// kernel.py:78 sgd_step, :83 prox_inner and :90 prox_outer (bodies
-// _sgd_kernel at :39, _prox_inner_kernel at :45 and _prox_outer_kernel at :52,
-// all run by _run_flat at :58).  Bound: sgd_step and prox_outer move 3n
-// elements (2 read, 1 written), prox_inner 4n (3 read, 1 written), over
-// 3.35 TB/s: at n = 2^26+3 in f32 0.2404 ms and 0.3205 ms.  Design:
-// apply_scaled's -- a grid-stride loop, one element per thread per step,
+// element i of the leaf
+template <typename Op, typename TO, typename... TI, size_t... I>
+__device__ __forceinline__ void leaf_one(
+    const typename LeafTable<sizeof...(TI)>::Leaf& leaf, int64_t i,
+    const Op& op, std::index_sequence<I...>) {
+  store_f32(static_cast<TO*>(leaf.out), i,
+            op(load_f32(static_cast<const TI*>(leaf.in[I]), i)...));
+}
+
+// the tile at element `base` of an aligned leaf, in chunks; `full` if the
+// whole tile lies inside the leaf
+template <typename Op, typename TO, typename... TI, size_t... I>
+__device__ __forceinline__ void tile_vec(
+    const typename LeafTable<sizeof...(TI)>::Leaf& leaf, int64_t base,
+    bool full, const Op& op, std::index_sequence<I...> idx) {
+  constexpr int kC = 16 / widest<TO, TI...>();
+  constexpr int kChunks = kPerThread / kC;
+  if (full) {
+    float v[sizeof...(TI)][kChunks][kC];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t e = base + (c * kThreads + threadIdx.x) * kC;
+      (load_chunk<TI, kC>(leaf.in[I], e, v[I][c]), ...);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      float r[kC];
+#pragma unroll
+      for (int k = 0; k < kC; ++k) r[k] = op(v[I][c][k]...);
+      store_chunk<TO, kC>(leaf.out, base + (c * kThreads + threadIdx.x) * kC,
+                          r);
+    }
+    return;
+  }
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t e = base + (c * kThreads + threadIdx.x) * kC;
+    if (e + kC <= leaf.n) {
+      float v[sizeof...(TI)][kC];
+      (load_chunk<TI, kC>(leaf.in[I], e, v[I]), ...);
+      float r[kC];
+#pragma unroll
+      for (int k = 0; k < kC; ++k) r[k] = op(v[I][k]...);
+      store_chunk<TO, kC>(leaf.out, e, r);
+    } else {
+      for (int64_t i = e; i < leaf.n; ++i) {
+        leaf_one<Op, TO, TI...>(leaf, i, op, idx);
+      }
+    }
+  }
+}
+
+template <typename Op, typename TO, typename... TI>
+__global__ void __launch_bounds__(kThreads)
+    leaves_kernel(const __grid_constant__ LeafTable<sizeof...(TI)> table,
+                  const Op op) {
+  constexpr auto kIdx = std::index_sequence_for<TI...>{};
+  const int t = blockIdx.x;
+  int j = 0;
+  while (j + 1 < table.count && table.leaf[j + 1].tile0 <= t) ++j;
+  const auto& leaf = table.leaf[j];
+  const int64_t base = static_cast<int64_t>(t - leaf.tile0) * kTile;
+  if (leaf.vec) {
+    tile_vec<Op, TO, TI...>(leaf, base, base + kTile <= leaf.n, op, kIdx);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int64_t e = base + k * kThreads + threadIdx.x;
+      if (e < leaf.n) leaf_one<Op, TO, TI...>(leaf, e, op, kIdx);
+    }
+  }
+}
+
+// The Option C steps replace src/repro/kernels/fused_update/kernel.py:83
+// prox_inner and :90 prox_outer (bodies _prox_inner_kernel at :45 and
+// _prox_outer_kernel at :52, run by _run_flat at :58).  Bound: prox_outer
+// moves 3n elements (2 read, 1 written), prox_inner 4n (3 read, 1 written),
+// over 3.35 TB/s: at n = 2^26+3 in f32 0.2404 ms and 0.3205 ms.  Design: one
+// launch per leaf, a grid-stride loop, one element per thread per step,
 // neighbouring threads on neighbouring addresses.  The TPU's 64K-element BLOCK
 // padding (kernel.py:36, :58-75) is a VMEM tiling and is not carried over; the
 // loop bound masks the ragged tail.  Every operation is rounded on its own
-// (__fmul_rn, __fsub_rn, __fadd_rn; nvcc would otherwise contract a multiply
-// and an add into one FMA, rounded once), in the plain version's order, so
-// each kernel is bit-equal to its plain version.  The host rounds each scalar
-// to f32 as the plain version does; prox_outer takes eta*lam as one scalar,
+// (__fmul_rn, __fsub_rn, __fadd_rn), in the plain version's order, so each
+// kernel is bit-equal to its plain version.  The host rounds each scalar to
+// f32 as the plain version does; prox_outer takes eta*lam as one scalar,
 // formed in double and rounded once.
-template <typename TW, typename TG>
-__global__ void __launch_bounds__(kThreads)
-    sgd_step_kernel(TW* __restrict__ out, const TW* __restrict__ w,
-                    const TG* __restrict__ g, float eta, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    store_f32(out, i,
-              __fsub_rn(load_f32(w, i), __fmul_rn(eta, load_f32(g, i))));
-  }
-}
-
 template <typename TT, typename TG, typename TW>
 __global__ void __launch_bounds__(kThreads)
     prox_inner_kernel(TT* __restrict__ out, const TT* __restrict__ theta,
@@ -227,14 +383,6 @@ bool with_dtype(int code, F&& f) {
 }
 
 template <typename TW, typename TD>
-void launch_scaled(void* out, const void* w, const void* d, float s, int64_t n,
-                   cudaStream_t stream) {
-  apply_scaled_kernel<TW, TD><<<grid_for(n), kThreads, 0, stream>>>(
-      static_cast<TW*>(out), static_cast<const TW*>(w),
-      static_cast<const TD*>(d), s, n);
-}
-
-template <typename TW, typename TD>
 void launch_rows(void* out, const void* w, const void* d, const float* s,
                  int64_t m, int64_t n, cudaStream_t stream) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
@@ -252,24 +400,54 @@ void launch_rows_q(void* out, const void* w, const int8_t* q, const float* s,
       static_cast<TW*>(out), static_cast<const TW*>(w), q, s, scale, m, n);
 }
 
-// The local steps' launchers: false for a dtype code they do not know.  The
-// dispatch's generic lambdas live here, at namespace scope, and not inside
-// the extern "C" entry points.
-bool launch_sgd_step(void* out, const void* w, const void* g, float eta,
-                     int64_t n, int w_dtype, int g_dtype, void* stream) {
+// The table of `count` leaves from `words`: kIn + 3 int64 per leaf, the
+// output pointer, the kIn input pointers, the length and the vector flag.
+// False if count or a length is out of range, or the tiles overflow int32.
+template <int kIn>
+bool fill_table(const int64_t* words, int count, LeafTable<kIn>* table) {
+  if (count < 1 || count > kMaxLeaves) return false;
+  int64_t tiles = 0;
+  for (int j = 0; j < count; ++j) {
+    const int64_t* w = words + j * (kIn + 3);
+    auto& leaf = table->leaf[j];
+    leaf.out = reinterpret_cast<void*>(w[0]);
+    for (int k = 0; k < kIn; ++k) {
+      leaf.in[k] = reinterpret_cast<const void*>(w[1 + k]);
+    }
+    leaf.n = w[kIn + 1];
+    leaf.vec = w[kIn + 2] != 0;
+    if (leaf.n <= 0) return false;
+    leaf.tile0 = static_cast<int32_t>(tiles);
+    tiles += (leaf.n + kTile - 1) / kTile;
+    if (tiles > INT32_MAX) return false;
+  }
+  table->count = count;
+  table->tiles = static_cast<int32_t>(tiles);
+  return true;
+}
+
+// out = a - c * b over a table of leaves, a of dtype code a_dtype (also the
+// output's), b of b_dtype; false for a dtype code or a table it does not take
+bool launch_sub_scaled_leaves(const int64_t* words, int count, float c,
+                              int a_dtype, int b_dtype, void* stream) {
+  LeafTable<2> table;
+  if (!fill_table(words, count, &table)) return false;
+  const int grid = table.tiles;  // one block per tile
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dtype(w_dtype, [&](auto tw) {
-    return with_dtype(g_dtype, [&](auto tg) {
-      using TW = typename decltype(tw)::type;
-      using TG = typename decltype(tg)::type;
-      sgd_step_kernel<TW, TG><<<grid_for(n), kThreads, 0, st>>>(
-          static_cast<TW*>(out), static_cast<const TW*>(w),
-          static_cast<const TG*>(g), eta, n);
+  return with_dtype(a_dtype, [&](auto ta) {
+    return with_dtype(b_dtype, [&](auto tb) {
+      using TA = typename decltype(ta)::type;
+      using TB = typename decltype(tb)::type;
+      leaves_kernel<SubScaled, TA, TA, TB><<<grid, kThreads, 0, st>>>(
+          table, SubScaled{c});
       return true;
     });
   });
 }
 
+// The Option C steps' launchers: false for a dtype code they do not know.
+// The dispatch's generic lambdas live here, at namespace scope, and not inside
+// the extern "C" entry points.
 bool launch_prox_inner(void* out, const void* theta, const void* g,
                        const void* w, float eta_in, float lam, int64_t n,
                        int t_dtype, int g_dtype, int w_dtype, void* stream) {
@@ -310,36 +488,25 @@ bool launch_prox_outer(void* out, const void* w, const void* theta,
 
 extern "C" {
 
-// Returns cudaErrorInvalidValue for a dtype code it does not know, else the
-// value of cudaGetLastError() after the launch.  n must be > 0.
-int fu_apply_scaled(void* out, const void* w, const void* d, float s,
-                    int64_t n, int w_dtype, int d_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_dtype == kF32 && d_dtype == kF32) {
-    launch_scaled<float, float>(out, w, d, s, n, st);
-  } else if (w_dtype == kF32 && d_dtype == kBF16) {
-    launch_scaled<float, __nv_bfloat16>(out, w, d, s, n, st);
-  } else if (w_dtype == kBF16 && d_dtype == kF32) {
-    launch_scaled<__nv_bfloat16, float>(out, w, d, s, n, st);
-  } else if (w_dtype == kBF16 && d_dtype == kBF16) {
-    launch_scaled<__nv_bfloat16, __nv_bfloat16>(out, w, d, s, n, st);
-  } else {
+int fu_max_leaves() { return kMaxLeaves; }
+
+// out = w - c * b over a table of leaves: sgd_step (b = g, c = eta) and
+// apply_scaled (b = d, c = s).  leaves: count * 5 int64 on the host, per leaf
+// the output pointer, w, b, the length (> 0) and the 16-byte vector flag;
+// 1 <= count <= fu_max_leaves(), every leaf of the same dtype pair.  Returns
+// cudaErrorInvalidValue for a dtype code or a table it does not take, else
+// the value of cudaGetLastError() after its one launch.
+int fu_sub_scaled_leaves(const int64_t* leaves, int count, float c,
+                         int w_dtype, int b_dtype, void* stream) {
+  if (!launch_sub_scaled_leaves(leaves, count, c, w_dtype, b_dtype, stream)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The local steps.  Each returns cudaErrorInvalidValue for a dtype code it
+// The Option C steps.  Each returns cudaErrorInvalidValue for a dtype code it
 // does not know, else the value of cudaGetLastError() after the launch.  n
 // must be > 0.
-int fu_sgd_step(void* out, const void* w, const void* g, float eta, int64_t n,
-                int w_dtype, int g_dtype, void* stream) {
-  if (!launch_sgd_step(out, w, g, eta, n, w_dtype, g_dtype, stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 int fu_prox_inner(void* out, const void* theta, const void* g, const void* w,
                   float eta_in, float lam, int64_t n, int t_dtype, int g_dtype,
                   int w_dtype, void* stream) {

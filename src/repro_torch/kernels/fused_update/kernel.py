@@ -1,17 +1,18 @@
 """Hopper kernels for the local steps and the server apply, bound through
 ctypes.
 
-  * :func:`sgd_step` -- ``w ← w − η·g``; replaces the TPU kernel
-    ``src/repro/kernels/fused_update/kernel.py:78`` (``sgd_step``).
+  * :func:`sgd_step_leaves` -- ``w ← w − η·g`` over a list of leaves;
+    replaces the TPU kernel ``src/repro/kernels/fused_update/kernel.py:78``
+    (``sgd_step``).
   * :func:`prox_inner` -- ``θ ← θ − η_in·(g + λ·(θ − w))``; replaces
     ``kernel.py:83`` (``prox_inner``).
   * :func:`prox_outer` -- ``w ← w − (ηλ)·(w − θ)``; replaces ``kernel.py:90``
     (``prox_outer``).  The three run through the tree fronts of ``ops.py``
     (``sgd_step_tree`` etc.), which only their callers reach: as in the
     reference, ``client_update`` computes its steps in plain tensor code.
-  * :func:`apply_scaled` -- ``w ← w − s·Δ``; replaces the TPU kernel
-    ``src/repro/kernels/fused_update/kernel.py:229`` (``apply_scaled``).
-    Every immediate apply runs it once per param leaf.
+  * :func:`apply_scaled_leaves` -- ``w ← w − s·Δ`` over a list of leaves;
+    replaces the TPU kernel ``src/repro/kernels/fused_update/kernel.py:229``
+    (``apply_scaled``).  Every immediate apply runs it once per param tree.
   * :func:`apply_rows` -- ``w ← w − Σᵢ sᵢ·Δᵢ`` over an ``[M, *w.shape]``
     stack; replaces ``kernel.py:129`` (``apply_rows``).  Every buffered and
     every sync flush runs it once per leaf, and so does every window apply
@@ -29,20 +30,29 @@ memory-bound: their bound on the card is the bytes they move (``2n`` reads and
 bytes, ``w`` read and written, and ``8M`` bytes of weights and scales) over
 3.35 TB/s; the source notes say what the design does about it.
 
+The two leaf-list wrappers launch once per tree: :func:`plan_launches`
+groups the leaves by dtype pair, drops empty ones, cuts each group into
+chunks of at most ``fu_max_leaves()`` leaves and flags the leaves whose
+pointers are all 16-byte aligned (read and written in 16-byte vectors); each
+chunk is one launch over a table of its leaves.  :func:`sgd_step` and
+:func:`apply_scaled` are their one-leaf calls.
+
 Each wrapper checks its inputs and raises on anything the kernel does not
 take: a tensor off the card, a dtype other than f32/bf16 (int8 for the
 quantized stack, f32 for weights and scales), a mismatched shape,
-a non-contiguous layout.  It allocates the output with ``torch.empty`` (the
+a non-contiguous layout.  It allocates the outputs with ``torch.empty`` (the
 update is out of place, in the first operand's dtype), launches on PyTorch's
-current stream, raises if the launch reports a CUDA error, and counts the
+current stream, raises if a launch reports a CUDA error, and counts each
 launch in :data:`LAUNCHES`.
 There is no fallback: the plain versions in ``ref.py`` are for CPU tensors,
 picked by ``ops.py``.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -66,14 +76,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_update")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f32 = ctypes.c_float
-    lib.fu_sgd_step.argtypes = [p, p, p, f32, i64, i32, i32, p]
-    lib.fu_sgd_step.restype = i32
+    lib.fu_max_leaves.argtypes = []
+    lib.fu_max_leaves.restype = i32
+    lib.fu_sub_scaled_leaves.argtypes = [p, i32, f32, i32, i32, p]
+    lib.fu_sub_scaled_leaves.restype = i32
     lib.fu_prox_inner.argtypes = [p, p, p, p, f32, f32, i64, i32, i32, i32, p]
     lib.fu_prox_inner.restype = i32
     lib.fu_prox_outer.argtypes = [p, p, p, f32, i64, i32, i32, p]
     lib.fu_prox_outer.restype = i32
-    lib.fu_apply_scaled.argtypes = [p, p, p, ctypes.c_float, i64, i32, i32, p]
-    lib.fu_apply_scaled.restype = i32
     lib.fu_apply_rows.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
     lib.fu_apply_rows.restype = i32
     lib.fu_apply_rows_q.argtypes = [p, p, p, p, p, i64, i64, i32, p]
@@ -143,11 +153,6 @@ def _elementwise(name: str, args, scalars) -> torch.Tensor:
     return out
 
 
-def sgd_step(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
-    """``w − η·g`` in f32, stored in ``w.dtype``; one kernel launch."""
-    return _elementwise("sgd_step", (("w", w), ("g", g)), (eta,))
-
-
 def prox_inner(theta: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                eta_in: float, lam: float) -> torch.Tensor:
     """``θ − η_in·(g + λ·(θ − w))`` in f32, stored in ``theta.dtype``; one
@@ -165,14 +170,143 @@ def prox_outer(w: torch.Tensor, theta: torch.Tensor, eta: float,
                         (eta * lam,))
 
 
+class Launch(NamedTuple):
+    """One launch of a leaf-table kernel: its inputs' dtype codes, the
+    indices of its leaves in the caller's list, in order, and the table the
+    kernel reads, ``3 + len(codes)`` int64 words per leaf: the output
+    pointer, the input pointers, the length and 1 if every one of the
+    leaf's pointers is 16-byte aligned (its elements move in vectors)."""
+    codes: Tuple[int, ...]
+    leaves: Tuple[int, ...]
+    words: array.array
+
+
+def plan_launches(name: str, args, outs: Sequence[torch.Tensor],
+                  max_leaves: int) -> List[Launch]:
+    """The launches that compute the leaves ``outs[i]`` from the inputs
+    ``args`` (``(arg name, list of leaves)`` pairs), checking each input
+    on the way: on ``outs[0]``'s device, contiguous, f32 or bf16, of one
+    shape with the leaf's other inputs (``outs[i]`` is allocated like the
+    first); ``name`` heads the error.  One launch per dtype
+    combination of the inputs, in order of first appearance, and per chunk
+    of at most ``max_leaves`` leaves.  Empty leaves need no launch and are
+    left out; every other leaf is in exactly one launch, and the leaves keep
+    their order within it."""
+    if not outs:
+        return []
+    dev, tensor, codes_of = outs[0].get_device(), torch.Tensor, _DTYPE_CODES
+    groups = {}
+    for i, (out, *ins) in enumerate(zip(outs, *[ts for _, ts in args])):
+        ptrs, low, codes, shape = [out.data_ptr()], 0, (), None
+        for t in ins:
+            if not (isinstance(t, tensor) and t.get_device() == dev
+                    and t.is_contiguous()
+                    and (code := codes_of.get(t.dtype)) is not None):
+                _refuse_leaf(name, args, outs, i)
+            if shape is None:
+                shape = t.shape
+            elif t.shape != shape:
+                _refuse_leaf(name, args, outs, i)
+            p = t.data_ptr()
+            ptrs.append(p)
+            low |= p
+            codes += (code,)
+        n = out.numel()
+        if n == 0:
+            continue
+        ptrs += (n, ((low | ptrs[0]) & 15) == 0)
+        group = groups.get(codes)
+        if group is None:
+            groups[codes] = ([i], array.array("q", ptrs))
+        else:
+            group[0].append(i)
+            group[1].extend(ptrs)
+    width = 3 + len(args)
+    return [Launch(codes, tuple(idx[c:c + max_leaves]),
+                   words[width * c:width * (c + max_leaves)])
+            for codes, (idx, words) in groups.items()
+            for c in range(0, len(idx), max_leaves)]
+
+
+def _refuse_leaf(name, args, outs, i) -> None:
+    """Raises what is wrong with leaf ``i`` of ``args``."""
+    for arg, ts in args:
+        _check(name, f"{arg}[{i}]", ts[i], outs[0].device)
+        _code(name, f"{arg}[{i}]", ts[i])
+        if ts[i].shape != outs[i].shape:
+            raise ValueError(f"{name}: {arg}[{i}] has shape "
+                             f"{tuple(ts[i].shape)}, the output "
+                             f"{tuple(outs[i].shape)}")
+    raise ValueError(f"{name}: leaf {i} is not on {outs[0].device}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_leaves() -> int:
+    """Leaves one launch of a leaf-table kernel takes (``kMaxLeaves`` of
+    ``fused_update.cu``)."""
+    return _lib().fu_max_leaves()
+
+
+def _sub_scaled_leaves(name: str, args, c: float) -> List[torch.Tensor]:
+    """``a − c·b`` for every leaf of ``args`` (``(("w", ws), (.., bs))``),
+    through ``fu_sub_scaled_leaves``: the outputs allocated, then one launch
+    per :func:`plan_launches` entry, each counted under ``name``.  ``c`` passes by value as
+    a C float, so the launch never waits on the device; a tensor is
+    refused."""
+    if isinstance(c, torch.Tensor):
+        raise TypeError(f"{name}: the scalar must be a host number, not a "
+                        f"tensor")
+    (first, ws), (arg, bs) = args
+    if len(bs) != len(ws):
+        raise ValueError(f"{name}: {arg} has {len(bs)} leaves, {first} has "
+                         f"{len(ws)}")
+    if not ws:
+        return []
+    _check(name, f"{first}[0]", ws[0])
+    outs = [torch.empty_like(w) for w in ws]
+    plan = plan_launches(name, args, outs, max_leaves())
+    if not plan:
+        return outs
+    fn = _lib().fu_sub_scaled_leaves
+    c = float(c)
+    dev = ws[0].get_device()
+    with torch.cuda.device(dev):
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        for launch in plan:
+            err = fn(launch.words.buffer_info()[0], len(launch.leaves), c,
+                     *launch.codes, stream)
+            _raise_on(name, err)
+            LAUNCHES[name] += 1
+    return outs
+
+
+def sgd_step_leaves(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+                    eta: float) -> List[torch.Tensor]:
+    """``w − η·g`` in f32 for every pair of leaves, stored in ``w.dtype``;
+    one kernel launch per dtype pair and chunk of ``max_leaves()`` leaves."""
+    return _sub_scaled_leaves("sgd_step", (("w", ws), ("g", gs)), eta)
+
+
+def apply_scaled_leaves(ws: Sequence[torch.Tensor],
+                        ds: Sequence[torch.Tensor], scale: float
+                        ) -> List[torch.Tensor]:
+    """``w − scale·d`` in f32 for every pair of leaves, stored in
+    ``w.dtype``; one kernel launch per dtype pair and chunk of
+    ``max_leaves()`` leaves.  ``scale`` is a host number passed by value, so
+    the apply never waits on the device to read it; a tensor is refused for
+    that reason."""
+    return _sub_scaled_leaves("apply_scaled", (("w", ws), ("d", ds)), scale)
+
+
+def sgd_step(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
+    """:func:`sgd_step_leaves` of one leaf."""
+    return sgd_step_leaves([w], [g], eta)[0]
+
+
 def apply_scaled(w: torch.Tensor, d: torch.Tensor, scale: float
                  ) -> torch.Tensor:
-    """``w − scale·d`` in f32, stored in ``w.dtype``; one kernel launch.
-
-    ``scale`` is a host number passed by value, so the apply never waits on
-    the device to read it; a tensor is refused for that reason.
-    """
-    return _elementwise("apply_scaled", (("w", w), ("d", d)), (scale,))
+    """:func:`apply_scaled_leaves` of one leaf."""
+    return apply_scaled_leaves([w], [d], scale)[0]
 
 
 def apply_rows(w: torch.Tensor, d_stack: torch.Tensor,

@@ -1,11 +1,20 @@
-"""Tree fronts for the fused-update kernels, one launch per param leaf.
+"""Tree fronts for the fused-update kernels.
 
-``mode`` picks the implementation per leaf:
+``sgd_step_tree`` and ``apply_delta_tree`` launch once per param tree (per
+dtype pair and chunk of the kernel's table of leaves, see
+``kernel.plan_launches``); the other fronts launch once per leaf.
 
-  * ``"auto"``   -- the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor;
+``mode`` picks the implementation:
+
+  * ``"auto"``   -- the CUDA kernel for a tree on the card, the plain version
+    for a tree on the CPU;
   * ``"kernel"`` -- the CUDA kernel (which raises on a CPU tensor);
-  * ``"ref"``    -- the plain version on any device.
+  * ``"ref"``    -- the plain version on any device, one call per leaf.
+
+In ``"auto"`` and ``"kernel"`` a tree whose leaves sit on several devices
+raises.  A tree front pairs the leaves of its trees in ``tree_leaves``
+order, so the trees must share one structure; the kernel path checks their
+leaf counts and shapes.
 
 The reference's ``"seq"`` mode and its dispatch for stacks that span several
 devices (``src/repro/kernels/fused_update/ops.py:83-94``, ``:181-186``) come
@@ -17,25 +26,51 @@ import torch
 
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ref as R
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _MODES = ("auto", "kernel", "ref")
 
 
-def _pick(kernel_fn, ref_fn, mode: str, leaf: torch.Tensor):
+def _check_mode(mode: str) -> None:
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r} (the "
                          f"'seq' mode comes with the multi-device slice)")
+
+
+def _pick(kernel_fn, ref_fn, mode: str, leaf: torch.Tensor):
+    _check_mode(mode)
     if mode == "ref" or (mode == "auto" and leaf.device.type == "cpu"):
         return ref_fn
     return kernel_fn
 
 
+def _tree_on_kernel(mode: str, leaves) -> bool:
+    """Whether a tree of ``leaves`` goes to the kernel, decided once for
+    the tree by its first leaf.  Leaves on several devices raise unless
+    ``mode`` is ``"ref"``: the kernel's wrapper refuses a leaf off the first
+    one's card, and a tree whose first leaf is not on a card is checked
+    here."""
+    _check_mode(mode)
+    if mode == "ref" or not leaves:
+        return False
+    if mode == "kernel" or leaves[0].is_cuda:
+        return True
+    devices = {x.device for x in leaves}
+    if len(devices) > 1:
+        raise ValueError(f"the tree's leaves sit on several devices "
+                         f"({sorted(map(str, devices))}); the kernel takes "
+                         f"one card")
+    return False
+
+
 def sgd_step_tree(w_tree, g_tree, eta: float, mode: str = "auto"):
-    """Option A step w ← w − η·g over a params tree, one pass per leaf."""
-    return tree_map(
-        lambda w, g: _pick(K.sgd_step, R.sgd_step_ref, mode, w)(w, g, eta),
-        w_tree, g_tree)
+    """Option A step w ← w − η·g over a params tree: on the card one launch
+    per tree."""
+    ws = tree_leaves(w_tree)
+    if _tree_on_kernel(mode, ws):
+        return tree_unflatten(
+            w_tree, K.sgd_step_leaves(ws, tree_leaves(g_tree), eta))
+    return tree_map(lambda w, g: R.sgd_step_ref(w, g, eta), w_tree, g_tree)
 
 
 def prox_inner_tree(theta_tree, g_tree, w_tree, eta_in: float, lam: float,
@@ -57,12 +92,16 @@ def prox_outer_tree(w_tree, theta_tree, eta: float, lam: float,
 
 
 def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
-    """Server apply w ← w − s·Δ over a params tree, one pass per leaf.
+    """Server apply w ← w − s·Δ over a params tree: on the card one launch
+    per tree.
 
     ``scale`` is a host float (β, β/M, or the damped β/(1+τ)^a)."""
-    return tree_map(
-        lambda w, d: _pick(K.apply_scaled, R.apply_scaled_ref, mode, w)(
-            w, d, scale), w_tree, d_tree)
+    ws = tree_leaves(w_tree)
+    if _tree_on_kernel(mode, ws):
+        return tree_unflatten(
+            w_tree, K.apply_scaled_leaves(ws, tree_leaves(d_tree), scale))
+    return tree_map(lambda w, d: R.apply_scaled_ref(w, d, scale), w_tree,
+                    d_tree)
 
 
 def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,

@@ -232,7 +232,7 @@ def mamba2_forward(cfg: ArchConfig, p, x, *, use_kernel: bool = False):
 # decode: O(1) recurrence
 # ---------------------------------------------------------------------------
 
-def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device="cpu"):
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device):
     s = cfg.ssm
     d_inner, n_heads, conv_dim = dims(cfg)
     return {

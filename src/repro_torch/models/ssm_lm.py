@@ -120,7 +120,7 @@ def ssm_lm_loss(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                   device="cpu"):
+                   device):
     """Per-layer conv ring buffers and SSM states, stacked on a leading
     ``n_layers`` axis; for the hybrid, one attention KV ring per shared
     slot holding ``T = min(max_len, sliding_window)`` positions (the whole

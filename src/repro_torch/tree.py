@@ -31,21 +31,40 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _collect(node, out: List[Any]) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _collect(node[k], out)
+    elif isinstance(node, (list, tuple)):
+        for x in node:
+            _collect(x, out)
+    else:
+        out.append(node)
+
+
 def tree_leaves(tree) -> List[Any]:
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for sub in tree for x in tree_leaves(sub)]
-    return [tree]
+    out: List[Any] = []
+    _collect(tree, out)
+    return out
+
+
+def _fill(node, it: Iterator):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _fill(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return _rebuild(node, [_fill(x, it) for x in node])
+    return next(it)
 
 
 def tree_unflatten(template, leaves: List[Any]):
     """``template``'s structure with its leaves replaced, in
     :func:`tree_leaves` order, by ``leaves``."""
     it: Iterator = iter(leaves)
-    out = tree_map(lambda _: next(it), template)
+    out = _fill(template, it)
     if next(it, it) is not it:
         raise ValueError("tree_unflatten: more leaves than the template has")
     return out

@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ops
 from repro_torch.kernels.fused_update import ref as R
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def jax_tree(tree):
@@ -305,6 +305,18 @@ def test_wrappers_check_inputs_before_building():
     # every refusal below happens in Python, before nvcc or the card
     with pytest.raises(ValueError, match="CUDA tensors only"):
         K.apply_scaled(torch.zeros(4), torch.zeros(4), 1.0)
+    # the leaf-list wrappers check every leaf before the library is loaded
+    for fn in (K.apply_scaled_leaves, K.sgd_step_leaves):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn([torch.zeros(4), torch.zeros(3)],
+               [torch.zeros(4), torch.zeros(3)], 0.5)
+        with pytest.raises(ValueError, match="leaves"):
+            fn([torch.zeros(4)], [torch.zeros(4), torch.zeros(3)], 0.5)
+        with pytest.raises(TypeError, match="host number"):
+            fn([torch.zeros(4)], [torch.zeros(4)], torch.tensor(0.5))
+        with pytest.raises(TypeError, match="torch.Tensor"):
+            fn([np.zeros(4)], [torch.zeros(4)], 0.5)
+        assert fn([], [], 0.5) == []
     with pytest.raises(ValueError, match="CUDA tensors only"):
         K.apply_rows(torch.zeros(4), torch.zeros(2, 4), torch.zeros(2))
     with pytest.raises(TypeError, match="torch.Tensor"):
@@ -344,3 +356,150 @@ def test_convert_round_trip_keeps_tree_and_dtype(dtype):
                  (tree["fc"][0]["w"], back["fc"][0]["w"])):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(_f32(a), _f32(b))
+
+
+# --- the leaf table of sgd_step and apply_scaled: one launch per tree ------
+
+def _plan_trees(sizes, dtypes):
+    """outputs and two input lists: leaf i has sizes[i] elements and input
+    dtypes dtypes[i] (the output takes the first)."""
+    ws = [torch.zeros(n, dtype=DTYPES[a][1]) for n, (a, _) in
+          zip(sizes, dtypes)]
+    bs = [torch.zeros(n, dtype=DTYPES[b][1]) for n, (_, b) in
+          zip(sizes, dtypes)]
+    return [torch.empty_like(w) for w in ws], ws, bs
+
+
+F, B = "float32", "bfloat16"
+PLAN_CASES = {
+    "one pair": ([3, 0, 17, 1, 8192], [(F, F)] * 5),
+    "mixed pairs": ([5, 7, 0, 9, 11, 13, 2],
+                    [(F, F), (B, B), (F, B), (F, F), (B, B), (F, B),
+                     (B, F)]),
+    "long tree": ([1 + (i * 37) % 50 for i in range(101)], [(F, F)] * 101),
+    "all empty": ([0, 0], [(F, F), (B, B)]),
+}
+
+
+@pytest.mark.parametrize("max_leaves", [1, 3, 48])
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_launches_covers_every_leaf_once(case, max_leaves):
+    sizes, dtypes = PLAN_CASES[case]
+    outs, ws, bs = _plan_trees(sizes, dtypes)
+    plan = K.plan_launches("t", (("w", ws), ("b", bs)), outs, max_leaves)
+    seen = [i for launch in plan for i in launch.leaves]
+    assert sorted(seen) == [i for i, n in enumerate(sizes) if n]
+    # one launch per dtype pair and chunk of max_leaves non-empty leaves
+    pairs = {}
+    for i, n in enumerate(sizes):
+        if n:
+            pairs.setdefault(dtypes[i], []).append(i)
+    assert len(plan) == sum(-(-len(v) // max_leaves) for v in pairs.values())
+    codes = {F: 0, B: 1}
+    for launch in plan:
+        assert 1 <= len(launch.leaves) <= max_leaves
+        assert list(launch.leaves) == sorted(launch.leaves)
+        assert all(tuple(codes[d] for d in dtypes[i]) == launch.codes
+                   for i in launch.leaves)
+        # per leaf: output, w, b pointers, length, vector flag
+        assert len(launch.words) == 5 * len(launch.leaves)
+        for j, i in enumerate(launch.leaves):
+            assert list(launch.words[5 * j:5 * j + 5]) == [
+                outs[i].data_ptr(), ws[i].data_ptr(), bs[i].data_ptr(),
+                sizes[i], 1]
+    # the pairs come in the order of their first leaf
+    firsts = [launch.leaves[0] for j, launch in enumerate(plan)
+              if j == 0 or plan[j - 1].codes != launch.codes]
+    assert len(firsts) == len(pairs) and firsts == sorted(firsts)
+
+
+@pytest.mark.parametrize("which", ["out", "w", "b"])
+def test_plan_launches_flags_unaligned_leaves(which):
+    # a bank row of a 10-element f32 leaf sits 40 bytes into its stack, and
+    # a view one element in sits 4 bytes past a 16-byte boundary
+    stack = torch.zeros(3, 10)
+    buf = torch.zeros(65)
+    row, shifted = stack[1], buf[1:]
+    assert row.data_ptr() % 16 == 8 and shifted.data_ptr() % 16 == 4
+    leaves = {"out": [torch.empty(10), torch.empty(64)],
+              "w": [torch.zeros(10), torch.zeros(64)],
+              "b": [torch.zeros(10), torch.zeros(64)]}
+    leaves[which] = [row, shifted]
+    plan = K.plan_launches("t", (("w", leaves["w"]), ("b", leaves["b"])),
+                           leaves["out"], 48)
+    assert len(plan) == 1 and plan[0].leaves == (0, 1)
+    assert list(plan[0].words[4::5]) == [0, 0]
+    aligned = K.plan_launches("t", (("w", [stack[0]]), ("b", [buf[:10]])),
+                              [torch.empty(10)], 48)
+    assert list(aligned[0].words[4::5]) == [1]
+
+
+@pytest.mark.parametrize("bad", ["int dtype", "shape", "strided",
+                                 "not a tensor", "zero-size int dtype"])
+def test_plan_launches_refuses_a_bad_leaf(bad):
+    # the planner checks every input leaf in its one pass, empty ones too
+    ws = [torch.zeros(4), torch.zeros(6, 2), torch.zeros(0)]
+    bs = [torch.zeros(4), torch.zeros(6, 2), torch.zeros(0)]
+    outs = [torch.empty_like(w) for w in ws]
+    assert len(K.plan_launches("t", (("w", ws), ("b", bs)), outs, 48)) == 1
+    bs[1] = {"int dtype": torch.zeros(6, 2, dtype=torch.int32),
+             "shape": torch.zeros(12),
+             "strided": torch.zeros(2, 6).t(),
+             "not a tensor": np.zeros((6, 2), np.float32),
+             "zero-size int dtype": torch.zeros(6, 2)}[bad]
+    if bad == "zero-size int dtype":
+        bs[2] = torch.zeros(0, dtype=torch.int64)
+    with pytest.raises((TypeError, ValueError)):
+        K.plan_launches("t", (("w", ws), ("b", bs)), outs, 48)
+
+
+@pytest.mark.parametrize("kind", ["sgd_step", "apply_scaled"])
+def test_table_fronts_refuse_kernel_on_cpu_and_mixed_devices(kind, monkeypatch):
+    front = {"sgd_step": ops.sgd_step_tree,
+             "apply_scaled": ops.apply_delta_tree}[kind]
+
+    def no_build():
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(K, "_lib", no_build)
+    cpu = {"a": torch.zeros(3), "b": [torch.zeros(2, 2)]}
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        front(cpu, cpu, 0.5, mode="kernel")
+    mixed = {"a": torch.zeros(3), "b": [torch.zeros(2, 2, device="meta")]}
+    with pytest.raises(ValueError, match="several devices"):
+        front(mixed, mixed, 0.5, mode="auto")
+    # the kernel's wrapper refuses every leaf off the first one's card
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        front(mixed, mixed, 0.5, mode="kernel")
+    assert all(v == 0 for v in K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("mode", ["ref", "auto"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_apply_delta_tree_matches_reference(case, mode):
+    from repro.kernels.fused_update import ops as jops
+    w_dt, d_dt = (DTYPES[d][0] for d in CASES[case])
+    rng = np.random.RandomState(5)
+    w = jax.tree.map(lambda x: jnp.asarray(x, w_dt), _nested(rng))
+    d = jax.tree.map(lambda x: jnp.asarray(x, d_dt), _nested(rng))
+    want = jops.apply_delta_tree(w, d, 0.37, mode="ref")
+    got = ops.apply_delta_tree(params_from_jax(w, "cpu"),
+                               params_from_jax(d, "cpu"), 0.37, mode=mode)
+    want_leaves, got_leaves = jax.tree.leaves(want), tree_leaves(got)
+    assert len(got_leaves) == len(want_leaves) == 4
+    tol = _tol("scaled", CASES[case][0])
+    # jitted on XLA:CPU the reference may contract w − s·Δ into one FMA
+    for a, b in zip(got_leaves, want_leaves):
+        assert a.dtype == DTYPES[CASES[case][0]][1]
+        np.testing.assert_allclose(_f32(a), _f32(b), **tol)
+
+
+def test_tree_unflatten_keeps_structure():
+    from repro_torch.core.quant import QuantStack
+    tree = {"b": [1, None, (2, 3)], "a": QuantStack(4, 5)}
+    leaves = tree_leaves(tree)
+    assert leaves == [4, 5, 1, 2, 3]
+    out = tree_unflatten(tree, [x * 10 for x in leaves])
+    assert out == {"a": QuantStack(40, 50), "b": [10, None, (20, 30)]}
+    assert isinstance(out["a"], QuantStack) and isinstance(out["b"][2], tuple)
+    with pytest.raises(ValueError, match="more leaves"):
+        tree_unflatten(tree, leaves + [6])

@@ -123,9 +123,9 @@ def apply_buffered_rows(state: ServerState, delta_stack, weights, count,
     leaves carry a leading ``[M]`` cohort axis on the params' device, or a
     personal-subset tree of such leaves; ``weights`` the ``[M]`` f32
     row-weight vector (β/M, per-delta damping ``(1+τ_j)^{-a}``, padding
-    masks).  The whole flush is one ``apply_rows`` pass per leaf;
-    ``count`` is the number of admitted rows, which the version counter
-    advances by.
+    masks).  On the card the whole flush is one ``apply_rows`` launch for
+    the tree; ``count`` is the number of admitted rows, which the version
+    counter advances by.
     """
     dev = tree_leaves(state.params)[0].device
     w = torch.as_tensor(np.asarray(weights, np.float32)).to(

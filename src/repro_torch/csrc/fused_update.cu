@@ -4,11 +4,13 @@
 //   fu_sub_scaled_leaves: out = w - c * b over a table of up to kMaxLeaves
 //       leaves in ONE launch: sgd_step (w - eta * g, the Option A step) and
 //       apply_scaled (w - s * d, every immediate apply)
+//   fu_prox_outer_leaves: out = w - (eta*lam) * (w - t) over such a table
+//                                                     (Option C outer step)
+//   fu_apply_rows_leaves: out = w - sum_i s_i * d_i over a table of leaves and
+//       their [M, n] stacks, in ONE launch (every buffered / sync flush, every
+//       fp32-banked window)
 //   fu_prox_inner:   out = t - eta_in * (g + lam * (t - w))
 //                                                     (Option C inner step)
-//   fu_prox_outer:   out = w - (eta*lam) * (w - t)      (Option C outer step)
-//   fu_apply_rows:   out = w - sum_i s_i * d_i    (every buffered / sync flush,
-//                                                 every fp32-banked window)
 //   fu_apply_rows_q: out = w - sum_i (s_i * scale_i) * q_i   (every int8-banked
 //                                                 serving window; q int8)
 //
@@ -38,8 +40,19 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
 constexpr int kMaxLeaves = 48;
-// apply_rows stages the row weights in shared memory this many at a time
+// the stacked applies stage the row weights in shared memory this many at a
+// time
 constexpr int kWeightChunk = 1024;
+// apply_rows: a thread issues the loads of this many rows before their FMAs;
+// a block's threads form at most 2^kMaxGroupsLog2 row groups, each of at
+// least kMinGroupRows rows; the host takes the fewest groups that give the
+// grid kFillBlocksPerSM blocks per SM
+constexpr int kUnroll = 8;
+constexpr int kMaxGroupsLog2 = 3;
+constexpr int kMinGroupRows = kUnroll;
+constexpr int kFillBlocksPerSM = 32;
+constexpr int kThreadsLog2 = 8;
+static_assert(kThreads == 1 << kThreadsLog2, "kThreadsLog2 is log2(kThreads)");
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -58,16 +71,19 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
 }
 
 // ---------------------------------------------------------------------------
-// One launch over a table of leaves: sgd_step and apply_scaled
+// One launch over a table of leaves: sgd_step, apply_scaled and prox_outer
 // ---------------------------------------------------------------------------
 //
 // Replace src/repro/kernels/fused_update/kernel.py:78 sgd_step (body
-// _sgd_kernel at :39, run by _run_flat at :58) and :229 apply_scaled (body
-// _apply_scaled_kernel at :95).  Both compute out = a - c * b, a the params w
-// and b the gradient g or the delta d.  Bound: 2n elements read and n written
-// over 3.35 TB/s -- at n = 2^26+3 0.2404 ms in f32 and 0.1202 ms in bf16 --
-// and nothing else; at a param tree of small leaves (the MNIST CNN's 8, 52K
-// elements) the bound is 0.2 us and the time is the host's.  The reference
+// _sgd_kernel at :39, run by _run_flat at :58), :229 apply_scaled (body
+// _apply_scaled_kernel at :95) and :90 prox_outer (body _prox_outer_kernel at
+// :52, run by _run_flat).  The first two compute out = a - c * b, a the
+// params w and b the gradient g or the delta d; prox_outer computes
+// out = a - c * (a - b), a = w, b = theta and c = eta*lam.  Bound: 2n
+// elements read and n written over 3.35 TB/s -- at n = 2^26+3 0.2404 ms in
+// f32 and 0.1202 ms in bf16 -- and nothing else; at a param tree of small
+// leaves (the MNIST CNN's 8, 52K elements) the bound is 0.2 us and the time
+// is the host's.  The reference
 // jits each tree front into one program; a launch per leaf costs a ctypes call
 // and a launch each.  Design:
 //   * one launch per param tree: the leaves travel by value, as a __grid_
@@ -96,8 +112,8 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
 //     otherwise contract them into one FMA, rounded once), in the plain
 //     version's order, so the result is bit-equal to the plain version.  The
 //     host rounds the scalar to f32 as the plain version does.
-// The table and the tile take any number of inputs (a parameter pack), so
-// the other elementwise steps can run on them with an operator of their own.
+// The table and the tile take any number of inputs (a parameter pack); each
+// step is an operator of its own.
 
 template <int kIn>
 struct LeafTable {
@@ -121,6 +137,15 @@ struct SubScaled {
   float c;
   __device__ __forceinline__ float operator()(float a, float b) const {
     return __fsub_rn(a, __fmul_rn(c, b));
+  }
+};
+
+// out = a - c * (a - b), each operation rounded on its own, in
+// prox_outer_ref's order
+struct ProxOuter {
+  float c;
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return __fsub_rn(a, __fmul_rn(c, __fsub_rn(a, b)));
   }
 };
 
@@ -239,19 +264,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The Option C steps replace src/repro/kernels/fused_update/kernel.py:83
-// prox_inner and :90 prox_outer (bodies _prox_inner_kernel at :45 and
-// _prox_outer_kernel at :52, run by _run_flat at :58).  Bound: prox_outer
-// moves 3n elements (2 read, 1 written), prox_inner 4n (3 read, 1 written),
-// over 3.35 TB/s: at n = 2^26+3 in f32 0.2404 ms and 0.3205 ms.  Design: one
-// launch per leaf, a grid-stride loop, one element per thread per step,
-// neighbouring threads on neighbouring addresses.  The TPU's 64K-element BLOCK
-// padding (kernel.py:36, :58-75) is a VMEM tiling and is not carried over; the
-// loop bound masks the ragged tail.  Every operation is rounded on its own
-// (__fmul_rn, __fsub_rn, __fadd_rn), in the plain version's order, so each
-// kernel is bit-equal to its plain version.  The host rounds each scalar to
-// f32 as the plain version does; prox_outer takes eta*lam as one scalar,
-// formed in double and rounded once.
+// The Option C inner step replaces src/repro/kernels/fused_update/kernel.py:83
+// prox_inner (body _prox_inner_kernel at :45, run by _run_flat at :58).
+// Bound: 4n elements (3 read, 1 written) over 3.35 TB/s: at n = 2^26+3 in f32
+// 0.3205 ms.  Design: one launch per leaf, a grid-stride loop, one element
+// per thread per step, neighbouring threads on neighbouring addresses.  The
+// TPU's 64K-element BLOCK padding (kernel.py:36, :58-75) is a VMEM tiling and
+// is not carried over; the loop bound masks the ragged tail.  Every operation
+// is rounded on its own (__fmul_rn, __fsub_rn, __fadd_rn), in the plain
+// version's order, so the kernel is bit-equal to its plain version.  The host
+// rounds each scalar to f32 as the plain version does.
 template <typename TT, typename TG, typename TW>
 __global__ void __launch_bounds__(kThreads)
     prox_inner_kernel(TT* __restrict__ out, const TT* __restrict__ theta,
@@ -267,62 +289,190 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TW, typename TT>
-__global__ void __launch_bounds__(kThreads)
-    prox_outer_kernel(TW* __restrict__ out, const TW* __restrict__ w,
-                      const TT* __restrict__ theta, float eta_lam, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float wi = load_f32(w, i);
-    const float gap = __fsub_rn(wi, load_f32(theta, i));
-    store_f32(out, i, __fsub_rn(wi, __fmul_rn(eta_lam, gap)));
+// ---------------------------------------------------------------------------
+// One launch over a stacked table of leaves: apply_rows
+// ---------------------------------------------------------------------------
+//
+// Replaces src/repro/kernels/fused_update/kernel.py:129 apply_rows (body
+// _apply_rows_kernel at :114): out = w - sum_i s_i * d_i for every leaf of a
+// param tree, d the leaf's [M, n] bank stack and s the [M] f32 row weights
+// shared by all leaves.  Bound: (M+1)·n elements read and n written over
+// 3.35 TB/s (at M = 4 over mamba2-130m's leaves 1.201 ms); at the MNIST
+// CNN's 8 leaves it is under a microsecond and the time is the host's.
+// Design:
+//   * one launch per param tree, as leaves_kernel: a __grid_constant__
+//     LeafTable<2> with in[0] = w and in[1] = the stack, one block per tile
+//     of columns; M and the device pointer of the weights pass beside it;
+//   * the block's threads form `groups` row groups (1, 2, 4 or 8, kThreads /
+//     groups threads each), every group over all the tile's columns.  Group
+//     g sums the rows g, g + groups, g + 2·groups, ... in order into f32
+//     accumulators, issuing kUnroll rows' loads before their FMAs so that
+//     many loads are in flight per thread; then the groups' sums are added
+//     in shared memory in group order.  The order of the sum is fixed by M
+//     and the number of groups: no atomics, no second pass, and two calls on
+//     the same inputs are bit-equal.  It differs from the plain version's,
+//     so the f32 result agrees within a few ulps;
+//   * the host takes the fewest groups, each of at least kMinGroupRows rows,
+//     whose grid has kFillBlocksPerSM blocks per SM: one group at M = 4 or
+//     8, where a group needs its kUnroll rows in flight and the columns of
+//     a large leaf fill the card anyway, and eight at M = 300 over 2^20
+//     columns, where eight short row loops per tile beat one long one.  On
+//     an H100, one group per tile left M = 300 over 2^20+5 columns behind
+//     torch.addmv, eight groups at M = 8 ran a 2^20-column bf16 stack
+//     slower than one or two, and more blocks per SM forced through launch
+//     bounds spilled registers and ran slower;
+//   * a thread owns kC columns of the tile in every row, kC = 16 bytes of the
+//     widest type.  Where the wrapper found the pointers of w, out and the
+//     stack 16-byte aligned AND the row stride n·sizeof(d) a multiple of 16
+//     bytes (so that every row is aligned, not only the first), the kC
+//     columns are neighbours, moved as one 16-byte chunk per row (a narrower
+//     stack as a narrower vector); otherwise, and in a leaf's last partial
+//     tile, they lie kThreads / groups apart, neighbouring threads on
+//     neighbouring columns, and move element by element.  Both layouts sum
+//     each column in the same order;
+//   * the weights are staged in shared memory kWeightChunk rows at a time; a
+//     zero-weight row with finite contents adds exactly 0, and M = 0 gives w.
+// This follows the plain version rather than the TPU kernel for M > 128: the
+// TPU kernel rounds its partial sum to the storage type between 128-row
+// chunks (kernel.py:120-126), the plain version keeps all of it in f32, and
+// so does this kernel.
+
+// the kC columns of the thread in one row at element offset `row` of the
+// stack: one chunk at column c0, or columns c0 + k * step below n
+template <typename T, int kC, bool kVec>
+__device__ __forceinline__ void load_cols(const T* p, int64_t row, int64_t c0,
+                                          int step, int64_t n,
+                                          Chunk<T, kC>& v) {
+  if constexpr (kVec) {
+    v = *reinterpret_cast<const Chunk<T, kC>*>(p + row + c0);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int64_t c = c0 + k * step;
+      if (c < n) v.v[k] = p[row + c];
+    }
   }
 }
 
-// Replaces src/repro/kernels/fused_update/kernel.py:129 apply_rows (body
-// _apply_rows_kernel at :114).  Bound: (M+1)·n elements read and n written,
-// over 3.35 TB/s.  Design: each thread owns one column and walks all M rows
-// with ONE f32 accumulator, so the whole reduction is one pass with no
-// cross-block step; the [M] weights are staged in shared memory in chunks of
-// kWeightChunk.  Row loads are coalesced across the warp (consecutive columns
-// of one row).  This follows the plain version rather than the TPU kernel for
-// M > 128: the TPU kernel rounds its partial sum to the storage type between
-// 128-row chunks (kernel.py:120-126), the plain version keeps all of it in f32,
-// and so does this kernel.  A zero-weight row with finite contents adds
-// exactly 0.
-template <typename TW, typename TD>
-__global__ void __launch_bounds__(kThreads)
-    apply_rows_kernel(TW* __restrict__ out, const TW* __restrict__ w,
-                      const TD* __restrict__ d, const float* __restrict__ s,
-                      int64_t m, int64_t n) {
-  __shared__ float s_chunk[kWeightChunk];
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float acc = 0.0f;
-  // the chunk loop is uniform across the block, so every thread reaches both
-  // barriers even when its own column lies past n
+// one tile of a stacked leaf, in the chunk layout (kVec) or the strided one;
+// the same for every thread of the block
+template <typename TO, typename TD, bool kVec>
+__device__ __forceinline__ void rows_tile(
+    const LeafTable<2>::Leaf& leaf, int64_t base, int lg,
+    const float* __restrict__ weights, int64_t m, float* s_w, float* s_part) {
+  constexpr int kC = 16 / widest<TO, TD>();
+  const int groups = 1 << lg;
+  const int width = kThreads >> lg;  // threads in a row group
+  const int g = threadIdx.x >> (kThreadsLog2 - lg);
+  const int lane = threadIdx.x & (width - 1);
+  const int64_t n = leaf.n;
+  const int64_t c0 = kVec ? base + lane * kC : base + lane;
+  const int step = kVec ? 1 : width;
+  const TD* d = static_cast<const TD*>(leaf.in[1]);
+  float acc[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) acc[k] = 0.0f;
+  // group 0 writes the output: its w is loaded ahead of the rows
+  Chunk<TO, kC> w;
+  if (g == 0) {
+    load_cols<TO, kC, kVec>(static_cast<const TO*>(leaf.in[0]), 0, c0, step,
+                            n, w);
+  }
+  // the chunk loop is uniform across the block, so every thread reaches the
+  // barriers
   for (int64_t r0 = 0; r0 < m; r0 += kWeightChunk) {
-    const int rows = static_cast<int>(m - r0 < kWeightChunk ? m - r0 : kWeightChunk);
+    const int rows =
+        static_cast<int>(m - r0 < kWeightChunk ? m - r0 : kWeightChunk);
     __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += blockDim.x) s_chunk[j] = s[r0 + j];
+    for (int j = threadIdx.x; j < rows; j += kThreads) {
+      s_w[j] = __ldg(weights + r0 + j);
+    }
     __syncthreads();
-    if (col < n) {
-      const TD* row = d + r0 * n + col;
-#pragma unroll 8
-      for (int j = 0; j < rows; ++j) {
-        acc = fmaf(s_chunk[j], load_f32(row, static_cast<int64_t>(j) * n), acc);
+    for (int j = g; j < rows; j += kUnroll * groups) {
+      Chunk<TD, kC> v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = j + u * groups;
+        if (r < rows) {
+          load_cols<TD, kC, kVec>(d, (r0 + r) * n, c0, step, n, v[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = j + u * groups;
+        if (r < rows) {
+          const float s = s_w[r];
+#pragma unroll
+          for (int k = 0; k < kC; ++k) {
+            acc[k] = fmaf(s, to_f32(v[u].v[k]), acc[k]);
+          }
+        }
       }
     }
   }
-  if (col < n) store_f32(out, col, load_f32(w, col) - acc);
+  if (groups > 1) {
+    // groups 1.. hand their sums to group 0, which adds them in group order;
+    // neighbouring lanes on neighbouring words
+    if (g > 0) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        s_part[((g - 1) * kC + k) * width + lane] = acc[k];
+      }
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int h = 1; h < groups; ++h) {
+#pragma unroll
+        for (int k = 0; k < kC; ++k) {
+          acc[k] += s_part[((h - 1) * kC + k) * width + lane];
+        }
+      }
+    }
+  }
+  if (g != 0) return;
+  TO* out = static_cast<TO*>(leaf.out);
+  if constexpr (kVec) {
+    float r[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) r[k] = to_f32(w.v[k]) - acc[k];
+    store_chunk<TO, kC>(out, c0, r);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int64_t c = c0 + k * step;
+      if (c < n) store_f32(out, c, to_f32(w.v[k]) - acc[k]);
+    }
+  }
+}
+
+template <typename TO, typename TD>
+__global__ void __launch_bounds__(kThreads)
+    rows_kernel(const __grid_constant__ LeafTable<2> table,
+                const float* __restrict__ weights, int64_t m, int lg) {
+  constexpr int kC = 16 / widest<TO, TD>();
+  __shared__ float s_w[kWeightChunk];
+  // the sums of groups 1..groups-1: (groups - 1) * kC * (kThreads / groups)
+  // floats, fewer than kThreads * kC
+  __shared__ float s_part[kThreads * kC];
+  const int t = blockIdx.x;
+  int j = 0;
+  while (j + 1 < table.count && table.leaf[j + 1].tile0 <= t) ++j;
+  const auto& leaf = table.leaf[j];
+  const int64_t cols = static_cast<int64_t>(kThreads >> lg) * kC;
+  const int64_t base = static_cast<int64_t>(t - leaf.tile0) * cols;
+  if (leaf.vec && base + cols <= leaf.n) {
+    rows_tile<TO, TD, true>(leaf, base, lg, weights, m, s_w, s_part);
+  } else {
+    rows_tile<TO, TD, false>(leaf, base, lg, weights, m, s_w, s_part);
+  }
 }
 
 // Replaces src/repro/kernels/fused_update/kernel.py:186 apply_rows_q (body
 // _apply_rows_q_kernel at :168).  Bound: M·n int8 bytes, w read and out written
 // (8n bytes for f32 w, 4n for bf16) and 8M bytes of weights and scales, over
-// 3.35 TB/s; the int8 rows are most of it at every real M.  Design: apply_rows'
-// shape -- one thread per column, ONE f32 accumulator across all M rows, so the
-// reduction is one pass with no cross-block step.  The per-row coefficient
+// 3.35 TB/s; the int8 rows are most of it at every real M.  Design: one launch
+// per leaf, one thread per column, ONE f32 accumulator across all M rows, so
+// the reduction is one pass with no cross-block step.  The per-row coefficient
 // weights[i]*scales[i] is formed once per block per row, rounded as the plain
 // version rounds it (__fmul_rn, never contracted into anything else), and
 // staged in shared memory kWeightChunk rows at a time; the f32 delta row never
@@ -382,15 +532,6 @@ bool with_dtype(int code, F&& f) {
   return false;
 }
 
-template <typename TW, typename TD>
-void launch_rows(void* out, const void* w, const void* d, const float* s,
-                 int64_t m, int64_t n, cudaStream_t stream) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  apply_rows_kernel<TW, TD><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<TW*>(out), static_cast<const TW*>(w),
-      static_cast<const TD*>(d), s, m, n);
-}
-
 template <typename TW>
 void launch_rows_q(void* out, const void* w, const int8_t* q, const float* s,
                    const float* scale, int64_t m, int64_t n,
@@ -401,10 +542,12 @@ void launch_rows_q(void* out, const void* w, const int8_t* q, const float* s,
 }
 
 // The table of `count` leaves from `words`: kIn + 3 int64 per leaf, the
-// output pointer, the kIn input pointers, the length and the vector flag.
-// False if count or a length is out of range, or the tiles overflow int32.
+// output pointer, the kIn input pointers, the length and the vector flag; a
+// leaf takes ceil(n / tile) tiles.  False if count or a length is out of
+// range, or the tiles overflow int32.
 template <int kIn>
-bool fill_table(const int64_t* words, int count, LeafTable<kIn>* table) {
+bool fill_table(const int64_t* words, int count, int64_t tile,
+                LeafTable<kIn>* table) {
   if (count < 1 || count > kMaxLeaves) return false;
   int64_t tiles = 0;
   for (int j = 0; j < count; ++j) {
@@ -418,7 +561,7 @@ bool fill_table(const int64_t* words, int count, LeafTable<kIn>* table) {
     leaf.vec = w[kIn + 2] != 0;
     if (leaf.n <= 0) return false;
     leaf.tile0 = static_cast<int32_t>(tiles);
-    tiles += (leaf.n + kTile - 1) / kTile;
+    tiles += (leaf.n + tile - 1) / tile;
     if (tiles > INT32_MAX) return false;
   }
   table->count = count;
@@ -426,26 +569,58 @@ bool fill_table(const int64_t* words, int count, LeafTable<kIn>* table) {
   return true;
 }
 
-// out = a - c * b over a table of leaves, a of dtype code a_dtype (also the
+// out = op(a, b) over a table of leaves, a of dtype code a_dtype (also the
 // output's), b of b_dtype; false for a dtype code or a table it does not take
-bool launch_sub_scaled_leaves(const int64_t* words, int count, float c,
-                              int a_dtype, int b_dtype, void* stream) {
+template <typename Op>
+bool launch_leaves(const int64_t* words, int count, Op op, int a_dtype,
+                   int b_dtype, void* stream) {
   LeafTable<2> table;
-  if (!fill_table(words, count, &table)) return false;
+  if (!fill_table(words, count, kTile, &table)) return false;
   const int grid = table.tiles;  // one block per tile
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_dtype(a_dtype, [&](auto ta) {
     return with_dtype(b_dtype, [&](auto tb) {
       using TA = typename decltype(ta)::type;
       using TB = typename decltype(tb)::type;
-      leaves_kernel<SubScaled, TA, TA, TB><<<grid, kThreads, 0, st>>>(
-          table, SubScaled{c});
+      leaves_kernel<Op, TA, TA, TB><<<grid, kThreads, 0, st>>>(table, op);
       return true;
     });
   });
 }
 
-// The Option C steps' launchers: false for a dtype code they do not know.
+// out = w - sum_i s_i * d_i over a stacked table, w (and out) of dtype code
+// w_dtype and the stacks of d_dtype; false for a dtype code, a table or an m
+// it does not take
+bool launch_rows_leaves(const int64_t* words, int count, const float* weights,
+                        int64_t m, int w_dtype, int d_dtype, void* stream) {
+  if (m < 0) return false;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_dtype(w_dtype, [&](auto tw) {
+    return with_dtype(d_dtype, [&](auto td) {
+      using TO = typename decltype(tw)::type;
+      using TD = typename decltype(td)::type;
+      constexpr int kC = 16 / widest<TO, TD>();
+      // the fewest row groups, at most m, whose grid fills the card
+      LeafTable<2> table;
+      int lg = 0;
+      if (!fill_table(words, count, kThreads * kC, &table)) return false;
+      while (lg < kMaxGroupsLog2 &&
+             (int64_t{kMinGroupRows} << (lg + 1)) <= m &&
+             table.tiles < kFillBlocksPerSM * sms) {
+        ++lg;
+        fill_table(words, count, (kThreads >> lg) * kC, &table);
+      }
+      rows_kernel<TO, TD><<<table.tiles, kThreads, 0, st>>>(table, weights, m,
+                                                           lg);
+      return true;
+    });
+  });
+}
+
+// The Option C inner step's launcher: false for a dtype code it does not know.
 // The dispatch's generic lambdas live here, at namespace scope, and not inside
 // the extern "C" entry points.
 bool launch_prox_inner(void* out, const void* theta, const void* g,
@@ -468,22 +643,6 @@ bool launch_prox_inner(void* out, const void* theta, const void* g,
   });
 }
 
-bool launch_prox_outer(void* out, const void* w, const void* theta,
-                       float eta_lam, int64_t n, int w_dtype, int t_dtype,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dtype(w_dtype, [&](auto tw) {
-    return with_dtype(t_dtype, [&](auto tt) {
-      using TW = typename decltype(tw)::type;
-      using TT = typename decltype(tt)::type;
-      prox_outer_kernel<TW, TT><<<grid_for(n), kThreads, 0, st>>>(
-          static_cast<TW*>(out), static_cast<const TW*>(w),
-          static_cast<const TT*>(theta), eta_lam, n);
-      return true;
-    });
-  });
-}
-
 }  // namespace
 
 extern "C" {
@@ -498,13 +657,39 @@ int fu_max_leaves() { return kMaxLeaves; }
 // the value of cudaGetLastError() after its one launch.
 int fu_sub_scaled_leaves(const int64_t* leaves, int count, float c,
                          int w_dtype, int b_dtype, void* stream) {
-  if (!launch_sub_scaled_leaves(leaves, count, c, w_dtype, b_dtype, stream)) {
+  if (!launch_leaves(leaves, count, SubScaled{c}, w_dtype, b_dtype, stream)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Option C steps.  Each returns cudaErrorInvalidValue for a dtype code it
+// out = w - eta_lam * (w - t) over a table of leaves (the Option C outer
+// step): leaves, count and the return as fu_sub_scaled_leaves', b = t.
+// eta_lam is eta*lam, formed by the caller in double and rounded to f32 once.
+int fu_prox_outer_leaves(const int64_t* leaves, int count, float eta_lam,
+                         int w_dtype, int t_dtype, void* stream) {
+  if (!launch_leaves(leaves, count, ProxOuter{eta_lam}, w_dtype, t_dtype,
+                     stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = w - sum_i weights[i] * d[i] over a table of leaves and their stacks:
+// leaves as fu_sub_scaled_leaves', b the leaf's [m, n] row-major stack, and
+// the vector flag set only if every row of the stack is 16-byte aligned;
+// weights: [m] f32 on the device, m >= 0.  Returns as fu_sub_scaled_leaves.
+int fu_apply_rows_leaves(const int64_t* leaves, int count,
+                         const void* weights, int64_t m, int w_dtype,
+                         int d_dtype, void* stream) {
+  if (!launch_rows_leaves(leaves, count, static_cast<const float*>(weights),
+                          m, w_dtype, d_dtype, stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Option C inner step.  Returns cudaErrorInvalidValue for a dtype code it
 // does not know, else the value of cudaGetLastError() after the launch.  n
 // must be > 0.
 int fu_prox_inner(void* out, const void* theta, const void* g, const void* w,
@@ -512,36 +697,6 @@ int fu_prox_inner(void* out, const void* theta, const void* g, const void* w,
                   int w_dtype, void* stream) {
   if (!launch_prox_inner(out, theta, g, w, eta_in, lam, n, t_dtype, g_dtype,
                          w_dtype, stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// eta_lam is eta*lam, formed by the caller in double and rounded to f32 once.
-int fu_prox_outer(void* out, const void* w, const void* theta, float eta_lam,
-                  int64_t n, int w_dtype, int t_dtype, void* stream) {
-  if (!launch_prox_outer(out, w, theta, eta_lam, n, w_dtype, t_dtype,
-                         stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// weights: [m] f32 on the device; d: [m, n] row-major.  n must be > 0.
-int fu_apply_rows(void* out, const void* w, const void* d, const void* weights,
-                  int64_t m, int64_t n, int w_dtype, int d_dtype,
-                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(weights);
-  if (w_dtype == kF32 && d_dtype == kF32) {
-    launch_rows<float, float>(out, w, d, s, m, n, st);
-  } else if (w_dtype == kF32 && d_dtype == kBF16) {
-    launch_rows<float, __nv_bfloat16>(out, w, d, s, m, n, st);
-  } else if (w_dtype == kBF16 && d_dtype == kF32) {
-    launch_rows<__nv_bfloat16, float>(out, w, d, s, m, n, st);
-  } else if (w_dtype == kBF16 && d_dtype == kBF16) {
-    launch_rows<__nv_bfloat16, __nv_bfloat16>(out, w, d, s, m, n, st);
-  } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -6,17 +6,19 @@ ctypes.
     (``sgd_step``).
   * :func:`prox_inner` -- ``θ ← θ − η_in·(g + λ·(θ − w))``; replaces
     ``kernel.py:83`` (``prox_inner``).
-  * :func:`prox_outer` -- ``w ← w − (ηλ)·(w − θ)``; replaces ``kernel.py:90``
-    (``prox_outer``).  The three run through the tree fronts of ``ops.py``
-    (``sgd_step_tree`` etc.), which only their callers reach: as in the
-    reference, ``client_update`` computes its steps in plain tensor code.
+  * :func:`prox_outer_leaves` -- ``w ← w − (ηλ)·(w − θ)`` over a list of
+    leaves; replaces ``kernel.py:90`` (``prox_outer``).  The three run
+    through the tree fronts of ``ops.py`` (``sgd_step_tree`` etc.), which
+    only their callers reach: as in the reference, ``client_update``
+    computes its steps in plain tensor code.
   * :func:`apply_scaled_leaves` -- ``w ← w − s·Δ`` over a list of leaves;
     replaces the TPU kernel ``src/repro/kernels/fused_update/kernel.py:229``
     (``apply_scaled``).  Every immediate apply runs it once per param tree.
-  * :func:`apply_rows` -- ``w ← w − Σᵢ sᵢ·Δᵢ`` over an ``[M, *w.shape]``
-    stack; replaces ``kernel.py:129`` (``apply_rows``).  Every buffered and
-    every sync flush runs it once per leaf, and so does every window apply
-    of a server that banks deltas in fp32.
+  * :func:`apply_rows_leaves` -- ``w ← w − Σᵢ sᵢ·Δᵢ`` over a list of leaves
+    and their ``[M, *w.shape]`` stacks; replaces ``kernel.py:129``
+    (``apply_rows``).  Every buffered and every sync flush runs it once per
+    param tree, and so does every window apply of a server that banks
+    deltas in fp32.
   * :func:`apply_rows_q` -- ``w ← w − Σᵢ (sᵢ·scaleᵢ)·qᵢ`` over an int8
     ``[M, *w.shape]`` stack with f32 row scales; replaces ``kernel.py:186``
     (``apply_rows_q``).  Every window apply of a server that banks deltas in
@@ -30,12 +32,13 @@ memory-bound: their bound on the card is the bytes they move (``2n`` reads and
 bytes, ``w`` read and written, and ``8M`` bytes of weights and scales) over
 3.35 TB/s; the source notes say what the design does about it.
 
-The two leaf-list wrappers launch once per tree: :func:`plan_launches`
+The four leaf-list wrappers launch once per tree: :func:`plan_launches`
 groups the leaves by dtype pair, drops empty ones, cuts each group into
 chunks of at most ``fu_max_leaves()`` leaves and flags the leaves whose
-pointers are all 16-byte aligned (read and written in 16-byte vectors); each
-chunk is one launch over a table of its leaves.  :func:`sgd_step` and
-:func:`apply_scaled` are their one-leaf calls.
+pointers (and, for a stack, whose every row) are 16-byte aligned (read and
+written in 16-byte vectors); each chunk is one launch over a table of its
+leaves.  :func:`sgd_step`, :func:`prox_outer`, :func:`apply_scaled` and
+:func:`apply_rows` are their one-leaf calls.
 
 Each wrapper checks its inputs and raises on anything the kernel does not
 take: a tensor off the card, a dtype other than f32/bf16 (int8 for the
@@ -52,7 +55,7 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,10 +85,10 @@ def _lib() -> ctypes.CDLL:
     lib.fu_sub_scaled_leaves.restype = i32
     lib.fu_prox_inner.argtypes = [p, p, p, p, f32, f32, i64, i32, i32, i32, p]
     lib.fu_prox_inner.restype = i32
-    lib.fu_prox_outer.argtypes = [p, p, p, f32, i64, i32, i32, p]
-    lib.fu_prox_outer.restype = i32
-    lib.fu_apply_rows.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
-    lib.fu_apply_rows.restype = i32
+    lib.fu_prox_outer_leaves.argtypes = [p, i32, f32, i32, i32, p]
+    lib.fu_prox_outer_leaves.restype = i32
+    lib.fu_apply_rows_leaves.argtypes = [p, i32, p, i64, i32, i32, p]
+    lib.fu_apply_rows_leaves.restype = i32
     lib.fu_apply_rows_q.argtypes = [p, p, p, p, p, i64, i64, i32, p]
     lib.fu_apply_rows_q.restype = i32
     lib.fu_error_string.argtypes = [i32]
@@ -125,8 +128,7 @@ def _raise_on(name: str, err: int) -> None:
 def _elementwise(name: str, args, scalars) -> torch.Tensor:
     """Checks ``args`` (``(arg name, tensor)`` pairs, the first the output's
     template), launches ``fu_<name>`` once over them with the host floats
-    ``scalars`` and counts the launch.  Scalars pass by value as C floats,
-    so the launch never waits on the device; a tensor is refused."""
+    ``scalars`` (see :func:`_host_scalar`) and counts the launch."""
     (first, x), rest = args[0], args[1:]
     _check(name, first, x)
     for arg, t in rest:
@@ -134,10 +136,7 @@ def _elementwise(name: str, args, scalars) -> torch.Tensor:
         if t.shape != x.shape:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"{first} has {tuple(x.shape)}")
-    for s in scalars:
-        if isinstance(s, torch.Tensor):
-            raise TypeError(f"{name}: scalars must be host numbers, not "
-                            f"tensors")
+    scalars = [_host_scalar(name, s) for s in scalars]
     codes = [_code(name, arg, t) for arg, t in args]
     out = torch.empty_like(x)
     n = x.numel()
@@ -146,7 +145,7 @@ def _elementwise(name: str, args, scalars) -> torch.Tensor:
     ptrs = [t.data_ptr() for _, t in args]
     with torch.cuda.device(x.device):
         err = getattr(_lib(), f"fu_{name}")(
-            out.data_ptr(), *ptrs, *(float(s) for s in scalars), n, *codes,
+            out.data_ptr(), *ptrs, *scalars, n, *codes,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -161,15 +160,6 @@ def prox_inner(theta: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                         (eta_in, lam))
 
 
-def prox_outer(w: torch.Tensor, theta: torch.Tensor, eta: float,
-               lam: float) -> torch.Tensor:
-    """``w − (ηλ)·(w − θ)`` in f32, stored in ``w.dtype``; one kernel
-    launch.  ηλ is formed in double and rounded to f32 once, as the
-    reference's ``eta * lam * (w − θ)`` rounds it."""
-    return _elementwise("prox_outer", (("w", w), ("theta", theta)),
-                        (eta * lam,))
-
-
 class Launch(NamedTuple):
     """One launch of a leaf-table kernel: its inputs' dtype codes, the
     indices of its leaves in the caller's list, in order, and the table the
@@ -182,36 +172,46 @@ class Launch(NamedTuple):
 
 
 def plan_launches(name: str, args, outs: Sequence[torch.Tensor],
-                  max_leaves: int) -> List[Launch]:
+                  max_leaves: int, rows: Optional[int] = None
+                  ) -> List[Launch]:
     """The launches that compute the leaves ``outs[i]`` from the inputs
     ``args`` (``(arg name, list of leaves)`` pairs), checking each input
     on the way: on ``outs[0]``'s device, contiguous, f32 or bf16, of one
     shape with the leaf's other inputs (``outs[i]`` is allocated like the
-    first); ``name`` heads the error.  One launch per dtype
-    combination of the inputs, in order of first appearance, and per chunk
-    of at most ``max_leaves`` leaves.  Empty leaves need no launch and are
-    left out; every other leaf is in exactly one launch, and the leaves keep
-    their order within it."""
+    first); ``name`` heads the error.  With ``rows`` (M) the last input
+    of each leaf is instead its stack, of shape ``[M, *shape]``, and the
+    leaf's vector flag also needs the stack's row stride (the leaf's
+    length times the stack's element size) to be a multiple of 16 bytes,
+    so that every row is aligned and not only the first.  One launch per
+    dtype combination of the inputs, in order of first appearance, and per
+    chunk of at most ``max_leaves`` leaves.  Empty leaves need no launch
+    and are left out; every other leaf is in exactly one launch, and the
+    leaves keep their order within it."""
     if not outs:
         return []
     dev, tensor, codes_of = outs[0].get_device(), torch.Tensor, _DTYPE_CODES
+    stack = len(args) - 1 if rows is not None else -1
     groups = {}
     for i, (out, *ins) in enumerate(zip(outs, *[ts for _, ts in args])):
         ptrs, low, codes, shape = [out.data_ptr()], 0, (), None
-        for t in ins:
+        n = out.numel()
+        for k, t in enumerate(ins):
             if not (isinstance(t, tensor) and t.get_device() == dev
                     and t.is_contiguous()
                     and (code := codes_of.get(t.dtype)) is not None):
-                _refuse_leaf(name, args, outs, i)
-            if shape is None:
+                _refuse_leaf(name, args, outs, i, rows)
+            if k == stack:
+                if t.shape[:1] != (rows,) or t.shape[1:] != shape:
+                    _refuse_leaf(name, args, outs, i, rows)
+                low |= n * t.element_size()
+            elif shape is None:
                 shape = t.shape
             elif t.shape != shape:
-                _refuse_leaf(name, args, outs, i)
+                _refuse_leaf(name, args, outs, i, rows)
             p = t.data_ptr()
             ptrs.append(p)
             low |= p
             codes += (code,)
-        n = out.numel()
         if n == 0:
             continue
         ptrs += (n, ((low | ptrs[0]) & 15) == 0)
@@ -228,15 +228,17 @@ def plan_launches(name: str, args, outs: Sequence[torch.Tensor],
             for c in range(0, len(idx), max_leaves)]
 
 
-def _refuse_leaf(name, args, outs, i) -> None:
+def _refuse_leaf(name, args, outs, i, rows) -> None:
     """Raises what is wrong with leaf ``i`` of ``args``."""
-    for arg, ts in args:
+    for k, (arg, ts) in enumerate(args):
         _check(name, f"{arg}[{i}]", ts[i], outs[0].device)
         _code(name, f"{arg}[{i}]", ts[i])
-        if ts[i].shape != outs[i].shape:
+        want = outs[i].shape
+        if rows is not None and k == len(args) - 1:
+            want = (rows, *want)
+        if ts[i].shape != want:
             raise ValueError(f"{name}: {arg}[{i}] has shape "
-                             f"{tuple(ts[i].shape)}, the output "
-                             f"{tuple(outs[i].shape)}")
+                             f"{tuple(ts[i].shape)}, expected {tuple(want)}")
     raise ValueError(f"{name}: leaf {i} is not on {outs[0].device}")
 
 
@@ -247,15 +249,14 @@ def max_leaves() -> int:
     return _lib().fu_max_leaves()
 
 
-def _sub_scaled_leaves(name: str, args, c: float) -> List[torch.Tensor]:
-    """``a − c·b`` for every leaf of ``args`` (``(("w", ws), (.., bs))``),
-    through ``fu_sub_scaled_leaves``: the outputs allocated, then one launch
-    per :func:`plan_launches` entry, each counted under ``name``.  ``c`` passes by value as
-    a C float, so the launch never waits on the device; a tensor is
-    refused."""
-    if isinstance(c, torch.Tensor):
-        raise TypeError(f"{name}: the scalar must be a host number, not a "
-                        f"tensor")
+def _table_leaves(name: str, entry: str, args, scalars, rows=None,
+                  others=()) -> List[torch.Tensor]:
+    """The library's ``entry`` (a ``fu_*_leaves`` function) over every leaf
+    of ``args`` (``(("w", ws), (.., bs))``): the outputs allocated like
+    ``ws``, then one launch per :func:`plan_launches` entry (``rows`` as
+    there), each counted under ``name``.  ``scalars`` are the C arguments
+    between the leaf count and the dtype codes; ``others`` (``(arg name,
+    tensor)`` pairs) are checked to be on ``ws[0]``'s card first."""
     (first, ws), (arg, bs) = args
     if len(bs) != len(ws):
         raise ValueError(f"{name}: {arg} has {len(bs)} leaves, {first} has "
@@ -263,28 +264,53 @@ def _sub_scaled_leaves(name: str, args, c: float) -> List[torch.Tensor]:
     if not ws:
         return []
     _check(name, f"{first}[0]", ws[0])
+    for other, t in others:
+        _check(name, other, t, ws[0].device)
     outs = [torch.empty_like(w) for w in ws]
-    plan = plan_launches(name, args, outs, max_leaves())
+    plan = plan_launches(name, args, outs, max_leaves(), rows)
     if not plan:
         return outs
-    fn = _lib().fu_sub_scaled_leaves
-    c = float(c)
+    fn = getattr(_lib(), entry)
     dev = ws[0].get_device()
     with torch.cuda.device(dev):
         stream = torch._C._cuda_getCurrentRawStream(dev)
         for launch in plan:
-            err = fn(launch.words.buffer_info()[0], len(launch.leaves), c,
-                     *launch.codes, stream)
+            err = fn(launch.words.buffer_info()[0], len(launch.leaves),
+                     *scalars, *launch.codes, stream)
             _raise_on(name, err)
             LAUNCHES[name] += 1
     return outs
+
+
+def _host_scalar(name: str, c) -> float:
+    """``c`` as a Python float.  It passes by value as a C float, so the
+    launch never waits on the device to read it; a tensor is refused for
+    that reason."""
+    if isinstance(c, torch.Tensor):
+        raise TypeError(f"{name}: the scalar must be a host number, not a "
+                        f"tensor")
+    return float(c)
 
 
 def sgd_step_leaves(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                     eta: float) -> List[torch.Tensor]:
     """``w − η·g`` in f32 for every pair of leaves, stored in ``w.dtype``;
     one kernel launch per dtype pair and chunk of ``max_leaves()`` leaves."""
-    return _sub_scaled_leaves("sgd_step", (("w", ws), ("g", gs)), eta)
+    return _table_leaves("sgd_step", "fu_sub_scaled_leaves",
+                         (("w", ws), ("g", gs)),
+                         (_host_scalar("sgd_step", eta),))
+
+
+def prox_outer_leaves(ws: Sequence[torch.Tensor],
+                      thetas: Sequence[torch.Tensor], eta: float,
+                      lam: float) -> List[torch.Tensor]:
+    """``w − (ηλ)·(w − θ)`` in f32 for every pair of leaves, stored in
+    ``w.dtype``; one kernel launch per dtype pair and chunk of
+    ``max_leaves()`` leaves.  ηλ is formed in double and rounded to f32
+    once, as the reference's ``eta * lam * (w − θ)`` rounds it."""
+    return _table_leaves("prox_outer", "fu_prox_outer_leaves",
+                         (("w", ws), ("theta", thetas)),
+                         (_host_scalar("prox_outer", eta * lam),))
 
 
 def apply_scaled_leaves(ws: Sequence[torch.Tensor],
@@ -292,15 +318,42 @@ def apply_scaled_leaves(ws: Sequence[torch.Tensor],
                         ) -> List[torch.Tensor]:
     """``w − scale·d`` in f32 for every pair of leaves, stored in
     ``w.dtype``; one kernel launch per dtype pair and chunk of
-    ``max_leaves()`` leaves.  ``scale`` is a host number passed by value, so
-    the apply never waits on the device to read it; a tensor is refused for
-    that reason."""
-    return _sub_scaled_leaves("apply_scaled", (("w", ws), ("d", ds)), scale)
+    ``max_leaves()`` leaves.  ``scale`` is a host number passed by value."""
+    return _table_leaves("apply_scaled", "fu_sub_scaled_leaves",
+                         (("w", ws), ("d", ds)),
+                         (_host_scalar("apply_scaled", scale),))
+
+
+def apply_rows_leaves(ws: Sequence[torch.Tensor],
+                      stacks: Sequence[torch.Tensor], weights: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """``w − Σᵢ weights[i]·stack[i]`` in f32 for every leaf ``w`` and its
+    ``[M, *w.shape]`` stack, stored in ``w.dtype``; ``weights`` is the
+    ``[M]`` float32 row-weight vector on the leaves' card, shared by every
+    leaf.  One kernel launch per dtype pair and chunk of ``max_leaves()``
+    leaves; M = 0 gives ``w``."""
+    name = "apply_rows"
+    if not (isinstance(weights, torch.Tensor) and weights.dim() == 1
+            and weights.dtype == torch.float32):
+        raise ValueError(f"{name}: weights must be a float32 tensor of shape "
+                         f"(M,), got {getattr(weights, 'dtype', weights)} "
+                         f"{tuple(getattr(weights, 'shape', ()))}")
+    m = weights.shape[0]
+    return _table_leaves(name, "fu_apply_rows_leaves",
+                         (("w", ws), ("d_stack", stacks)),
+                         (weights.data_ptr(), m), rows=m,
+                         others=(("weights", weights),))
 
 
 def sgd_step(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
     """:func:`sgd_step_leaves` of one leaf."""
     return sgd_step_leaves([w], [g], eta)[0]
+
+
+def prox_outer(w: torch.Tensor, theta: torch.Tensor, eta: float,
+               lam: float) -> torch.Tensor:
+    """:func:`prox_outer_leaves` of one leaf."""
+    return prox_outer_leaves([w], [theta], eta, lam)[0]
 
 
 def apply_scaled(w: torch.Tensor, d: torch.Tensor, scale: float
@@ -311,33 +364,8 @@ def apply_scaled(w: torch.Tensor, d: torch.Tensor, scale: float
 
 def apply_rows(w: torch.Tensor, d_stack: torch.Tensor,
                weights: torch.Tensor) -> torch.Tensor:
-    """``w − Σᵢ weights[i]·d_stack[i]`` in f32, stored in ``w.dtype``; one
-    kernel launch.  ``d_stack`` is ``[M, *w.shape]``, ``weights`` ``[M]``
-    float32 on the same card."""
-    name = "apply_rows"
-    _check(name, "w", w)
-    _check(name, "d_stack", d_stack, w.device)
-    _check(name, "weights", weights, w.device)
-    m = d_stack.shape[0] if d_stack.dim() else -1
-    if d_stack.shape[1:] != w.shape or d_stack.dim() != w.dim() + 1:
-        raise ValueError(f"{name}: d_stack has shape {tuple(d_stack.shape)}, "
-                         f"expected [M, *{tuple(w.shape)}]")
-    if weights.dtype != torch.float32 or weights.shape != (m,):
-        raise ValueError(f"{name}: weights must be float32 of shape ({m},), "
-                         f"got {weights.dtype} {tuple(weights.shape)}")
-    wc, dc = _code(name, "w", w), _code(name, "d_stack", d_stack)
-    out = torch.empty_like(w)
-    n = w.numel()
-    if n == 0:
-        return out
-    with torch.cuda.device(w.device):
-        err = _lib().fu_apply_rows(
-            out.data_ptr(), w.data_ptr(), d_stack.data_ptr(),
-            weights.data_ptr(), m, n, wc, dc,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(name, err)
-    LAUNCHES[name] += 1
-    return out
+    """:func:`apply_rows_leaves` of one leaf."""
+    return apply_rows_leaves([w], [d_stack], weights)[0]
 
 
 def apply_rows_q(w: torch.Tensor, q_stack: torch.Tensor,

@@ -1,8 +1,9 @@
 """Tree fronts for the fused-update kernels.
 
-``sgd_step_tree`` and ``apply_delta_tree`` launch once per param tree (per
-dtype pair and chunk of the kernel's table of leaves, see
-``kernel.plan_launches``); the other fronts launch once per leaf.
+``sgd_step_tree``, ``prox_outer_tree``, ``apply_delta_tree`` and
+``apply_rows_tree`` launch once per param tree (per dtype pair and chunk of
+the kernel's table of leaves, see ``kernel.plan_launches``); the other
+fronts launch once per leaf.
 
 ``mode`` picks the implementation:
 
@@ -84,11 +85,15 @@ def prox_inner_tree(theta_tree, g_tree, w_tree, eta_in: float, lam: float,
 
 def prox_outer_tree(w_tree, theta_tree, eta: float, lam: float,
                     mode: str = "auto"):
-    """Option C outer step w ← w − (ηλ)·(w − θ) over a params tree, one pass
-    per leaf."""
-    return tree_map(
-        lambda w, t: _pick(K.prox_outer, R.prox_outer_ref, mode, w)(
-            w, t, eta, lam), w_tree, theta_tree)
+    """Option C outer step w ← w − (ηλ)·(w − θ) over a params tree: on the
+    card one launch per tree."""
+    ws = tree_leaves(w_tree)
+    if _tree_on_kernel(mode, ws):
+        return tree_unflatten(
+            w_tree, K.prox_outer_leaves(ws, tree_leaves(theta_tree), eta,
+                                        lam))
+    return tree_map(lambda w, t: R.prox_outer_ref(w, t, eta, lam), w_tree,
+                    theta_tree)
 
 
 def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
@@ -106,14 +111,19 @@ def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
 
 def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,
                     mode: str = "auto"):
-    """Stacked server apply w ← w − Σᵢ weights[i]·Δᵢ per leaf, one pass each.
+    """Stacked server apply w ← w − Σᵢ weights[i]·Δᵢ per leaf: on the card
+    one launch per tree.
 
     ``stack_tree`` is a DeltaBank buffer: a params-shaped tree whose leaves
     carry a leading ``[M]`` cohort axis; ``weights`` is the ``[M]`` float32
     row-weight vector on the params' device."""
-    return tree_map(
-        lambda w, d: _pick(K.apply_rows, R.apply_rows_ref, mode, w)(
-            w, d, weights), w_tree, stack_tree)
+    ws = tree_leaves(w_tree)
+    if _tree_on_kernel(mode, ws):
+        return tree_unflatten(
+            w_tree, K.apply_rows_leaves(ws, tree_leaves(stack_tree),
+                                        weights))
+    return tree_map(lambda w, d: R.apply_rows_ref(w, d, weights), w_tree,
+                    stack_tree)
 
 
 def apply_rows_q_tree(w_tree, q_tree, scales_tree, weights: torch.Tensor,

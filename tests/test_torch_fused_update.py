@@ -453,23 +453,86 @@ def test_plan_launches_refuses_a_bad_leaf(bad):
         K.plan_launches("t", (("w", ws), ("b", bs)), outs, 48)
 
 
-@pytest.mark.parametrize("kind", ["sgd_step", "apply_scaled"])
+@pytest.mark.parametrize("n, vec", [(10, 0), (8, 1), (12, 1), (9, 0)])
+def test_plan_launches_flags_stacks_by_row_stride(n, vec):
+    # every row of a stack is aligned only if the row stride, n f32
+    # elements, is a multiple of 16 bytes: the MNIST CNN's last bias (10
+    # elements, 40-byte rows) moves element by element although the stack's
+    # base is aligned, an 8-element leaf in vectors
+    w, stack, out = torch.zeros(n), torch.zeros(5, n), torch.empty(n)
+    assert w.data_ptr() % 16 == 0 and stack.data_ptr() % 16 == 0
+    plan = K.plan_launches("t", (("w", [w]), ("d", [stack])), [out], 48,
+                           rows=5)
+    assert len(plan) == 1 and plan[0].leaves == (0,)
+    assert list(plan[0].words) == [out.data_ptr(), w.data_ptr(),
+                                   stack.data_ptr(), n, vec]
+    # a bf16 stack halves the row stride: 8 bf16 elements are 16 bytes
+    half = K.plan_launches("t", (("w", [w]), ("d", [stack.bfloat16()])),
+                           [out], 48, rows=5)
+    assert half[0].codes == (0, 1)
+    assert half[0].words[4] == int(n % 8 == 0)
+
+
+@pytest.mark.parametrize("bad", ["rows", "trailing shape", "no row axis",
+                                 "rank"])
+def test_plan_launches_refuses_a_bad_stack(bad):
+    ws = [torch.zeros(4), torch.zeros(6, 2), torch.zeros(0)]
+    stacks = [torch.zeros(3, 4), torch.zeros(3, 6, 2), torch.zeros(3, 0)]
+    outs = [torch.empty_like(w) for w in ws]
+    args = (("w", ws), ("d", stacks))
+    plan = K.plan_launches("t", args, outs, 48, rows=3)
+    assert [launch.leaves for launch in plan] == [(0, 1)]
+    # an M = 0 stack of each leaf plans the same launch
+    empty = [torch.zeros(0, *w.shape) for w in ws]
+    plan = K.plan_launches("t", (("w", ws), ("d", empty)), outs, 48, rows=0)
+    assert [launch.leaves for launch in plan] == [(0, 1)]
+    stacks[1] = {"rows": torch.zeros(2, 6, 2),
+                 "trailing shape": torch.zeros(3, 12),
+                 "no row axis": torch.zeros(6, 2),
+                 "rank": torch.zeros(3, 1, 6, 2)}[bad]
+    with pytest.raises(ValueError):
+        K.plan_launches("t", args, outs, 48, rows=3)
+    # an empty leaf's stack is checked too
+    stacks[1] = torch.zeros(3, 6, 2)
+    stacks[2] = torch.zeros(2, 0)
+    with pytest.raises(ValueError):
+        K.plan_launches("t", args, outs, 48, rows=3)
+
+
+# each table front as a function of (w tree, other tree), and how the other
+# tree is built from a w-shaped tree (apply_rows: a 2-row stack per leaf)
+TABLE_FRONTS = {
+    "sgd_step": (lambda w, b, mode: ops.sgd_step_tree(w, b, 0.5, mode=mode),
+                 lambda t: t),
+    "apply_scaled": (lambda w, b, mode: ops.apply_delta_tree(w, b, 0.5,
+                                                             mode=mode),
+                     lambda t: t),
+    "prox_outer": (lambda w, b, mode: ops.prox_outer_tree(w, b, 0.1, 2.0,
+                                                          mode=mode),
+                   lambda t: t),
+    "apply_rows": (lambda w, b, mode: ops.apply_rows_tree(
+        w, b, torch.ones(2), mode=mode),
+        lambda t: {"a": torch.stack([t["a"]] * 2),
+                   "b": [torch.stack([t["b"][0]] * 2)]}),
+}
+
+
+@pytest.mark.parametrize("kind", list(TABLE_FRONTS))
 def test_table_fronts_refuse_kernel_on_cpu_and_mixed_devices(kind, monkeypatch):
-    front = {"sgd_step": ops.sgd_step_tree,
-             "apply_scaled": ops.apply_delta_tree}[kind]
+    front, other = TABLE_FRONTS[kind]
 
     def no_build():
         raise AssertionError("the library was loaded")
     monkeypatch.setattr(K, "_lib", no_build)
     cpu = {"a": torch.zeros(3), "b": [torch.zeros(2, 2)]}
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        front(cpu, cpu, 0.5, mode="kernel")
+        front(cpu, other(cpu), mode="kernel")
     mixed = {"a": torch.zeros(3), "b": [torch.zeros(2, 2, device="meta")]}
     with pytest.raises(ValueError, match="several devices"):
-        front(mixed, mixed, 0.5, mode="auto")
+        front(mixed, other(mixed), mode="auto")
     # the kernel's wrapper refuses every leaf off the first one's card
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        front(mixed, mixed, 0.5, mode="kernel")
+        front(mixed, other(mixed), mode="kernel")
     assert all(v == 0 for v in K.LAUNCHES.values())
 
 
@@ -503,3 +566,58 @@ def test_tree_unflatten_keeps_structure():
     assert isinstance(out["a"], QuantStack) and isinstance(out["b"][2], tuple)
     with pytest.raises(ValueError, match="more leaves"):
         tree_unflatten(tree, leaves + [6])
+
+
+def _nested_with_bias(rng, dtype=np.float32, rows=None):
+    """``_nested`` with a 10-element leaf beside it (the MNIST CNN's last
+    bias, whose f32 rows are 40 bytes); with ``rows`` each leaf is a stack
+    of that many rows."""
+    lead = () if rows is None else (rows,)
+    tree = jax.tree.map(
+        lambda x: rng.randn(*lead, *x.shape).astype(dtype), _nested(rng))
+    tree["head"] = rng.randn(*lead, 10).astype(dtype)
+    return tree
+
+
+@pytest.mark.parametrize("mode", ["ref", "auto"])
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kind", ["prox_outer", "apply_rows"])
+def test_table_tree_fronts_match_reference(kind, case, mode):
+    """The fronts that now launch once per tree, against the JAX package's
+    fronts on a nested tree with a 10-element leaf, in every dtype case."""
+    from repro.kernels.fused_update import ops as jops
+    w_dt, o_dt = CASES[case]
+    rng = np.random.RandomState(7)
+    w = _nested_with_bias(rng)
+    if kind == "prox_outer":
+        other = _nested_with_bias(rng)
+        kw = LOCAL["prox_outer"][0]
+        scalars = (kw["eta"], kw["lam"])
+        tol = _tol("scaled", w_dt)
+        jfront, front = jops.prox_outer_tree, ops.prox_outer_tree
+    else:
+        m = 6
+        other = _nested_with_bias(rng, rows=m)
+        weights = (rng.rand(m) / np.sqrt(m)).astype(np.float32)
+        weights[1::3] = 0.0
+        scalars = None
+        tol = _tol("rows", w_dt)
+        jfront, front = jops.apply_rows_tree, ops.apply_rows_tree
+    jw = jax.tree.map(lambda x: jnp.asarray(x, DTYPES[w_dt][0]), w)
+    jo = jax.tree.map(lambda x: jnp.asarray(x, DTYPES[o_dt][0]), other)
+    tw, to = params_from_jax(jw, "cpu"), params_from_jax(jo, "cpu")
+    if scalars is None:
+        want = jfront(jw, jo, jnp.asarray(weights), mode="ref")
+        got = front(tw, to, torch.from_numpy(weights), mode=mode)
+    else:
+        want = jfront(jw, jo, *scalars, mode="ref")
+        got = front(tw, to, *scalars, mode=mode)
+    want_leaves, got_leaves = jax.tree.leaves(want), tree_leaves(got)
+    assert len(got_leaves) == len(want_leaves) == 5
+    # jitted on XLA:CPU the reference may contract a multiply and a
+    # subtraction into one FMA, and sums the rows in its own order
+    for a, b in zip(got_leaves, want_leaves):
+        assert a.dtype == DTYPES[w_dt][1]
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(_f32(a), _f32(b), **tol)
+    assert all(v == 0 for v in K.LAUNCHES.values())

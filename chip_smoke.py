@@ -19,7 +19,10 @@ Phases; any failure exits non-zero and prints no result line:
      and bf16 inputs, with a shared a_log, and at SSD_ROW_CASES with a
      per-row (B, H) a_log, the layout (f)'s cohort hands the kernel; chunk
      32/64/128 within SSD_CHUNK_TOL; and at zamba2's SSD_ZAMBA_DIMS (N = 64,
-     H = 64) at SSD_ZAMBA_CASES, bf16, per-row a_log.
+     H = 64) at SSD_ZAMBA_CASES, bf16, per-row a_log; at SSD_GROUP_CASES
+     (G = 2, chunk 64); every case also against ``ssd_phases_ref`` (the
+     plain model of the kernels' three phases) within SSD_TOL, with the
+     kernels per call, scratch bytes and the design's bytes reported.
      ``flash_attention_fwd`` against ``attention_ref`` within FLASH_TOL at
      FLASH_CASES ((i)'s cohort, (2, 4096) f32 and bf16, gemma2-like hd 256
      with softcap and GQA, MQA, a tail at S = 1000, and (1, 32768), checked
@@ -911,6 +914,11 @@ SSD_MAIN_SHAPE = "B=4 S=128 bf16 a_log (B,H)"
 # (8, 4096)
 SSD_ZAMBA_DIMS = dict(H=64, P=64, G=1, N=64, chunk=128)
 SSD_ZAMBA_CASES = ((4, 128), (8, 4096))
+# mamba2-130m's dims in two groups of 12 heads, and at chunk 64, bf16 at
+# (2, 1024): each block walks heads of one group, and a chunk of 64 takes
+# half of each 128-token tile
+SSD_GROUP_CASES = ((2, 1024, dict(SSD_DIMS, G=2), " G=2"),
+                   (2, 1024, dict(SSD_DIMS, chunk=64), " chunk=64"))
 
 
 def ssd_inputs(torch, g, B, S, dtype, per_row=False, dims=SSD_DIMS):
@@ -950,33 +958,51 @@ def ssd_kernel_phase(torch):
     the same check, and with per-row a_log so must the output of a kernel
     that read row 0 for every row; chunk invariance at (1, 1024).  The
     same at zamba2's dims (SSD_ZAMBA_DIMS, SSD_ZAMBA_CASES, bf16, per-row
-    a_log)."""
+    a_log) and at SSD_GROUP_CASES (G = 2, chunk 64).  Every case is also
+    held within SSD_TOL against ``ssd_phases_ref``, the plain model of the
+    kernels' three phases and their hi/lo bf16 split, and must launch the
+    kernels ``kernel.plan`` names (3, or 1 for a one-chunk sequence)."""
     from repro_torch.kernels.ssd import kernel as K
-    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.kernels.ssd.ref import ssd_phases_ref, ssd_ref
     g = torch.Generator(device="cuda").manual_seed(1)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    cases = [(B, S, d, False, SSD_DIMS) for B, S in SSD_CASES for d in dtypes]
-    cases += [(B, S, d, True, SSD_DIMS) for B, S, d in SSD_ROW_CASES]
-    cases += [(B, S, "bf16", True, SSD_ZAMBA_DIMS)
+    cases = [(B, S, d, False, SSD_DIMS, "") for B, S in SSD_CASES
+             for d in dtypes]
+    cases += [(B, S, d, True, SSD_DIMS, "") for B, S, d in SSD_ROW_CASES]
+    cases += [(B, S, "bf16", True, SSD_ZAMBA_DIMS, " zamba2 H=64 N=64")
               for B, S in SSD_ZAMBA_CASES]
+    cases += [(B, S, "bf16", False, dims, tag)
+              for B, S, dims, tag in SSD_GROUP_CASES]
     rows = []
-    K.reset_launches()
-    for B, S, dname, per_row, dims in cases:
+    for B, S, dname, per_row, dims, tag in cases:
         ins = ssd_inputs(torch, g, B, S, dtypes[dname], per_row, dims)
         label = (f"B={B} S={S} {dname}" + (" a_log (B,H)" if per_row
-                                            else "")
-                 + (" zamba2 H=64 N=64" if dims is SSD_ZAMBA_DIMS else ""))
+                                            else "") + tag)
         want = ssd_ref(*ins)
         torch.cuda.empty_cache()
         poison = torch.full_like(want, float("nan"))
         del poison
+        K.reset_launches()
         got = K.ssd_fwd(*ins, chunk=dims["chunk"])
         torch.cuda.synchronize()
+        launched = dict(K.LAUNCHES)
+        pl = K.plan(B, S, dims["H"], dims["P"], dims["G"], dims["N"],
+                    dims["chunk"], ins[0].element_size())
+        check(launched == {"ssd_fwd": 1, "ssd_fwd_kernels": pl.kernels},
+              f"ssd_fwd {label}: launched {launched}, expected one call "
+              f"of {pl.kernels} kernels")
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all())
               and torch.allclose(got, want, **SSD_TOL),
               f"ssd_fwd {label}: kernel disagrees with ssd_ref (max abs "
               f"err {err})")
+        model = ssd_phases_ref(*ins, chunk=dims["chunk"])
+        model_err = float((got - model).abs().max())
+        model_ref_err = float((model - want).abs().max())
+        check(torch.allclose(got, model, **SSD_TOL),
+              f"ssd_fwd {label}: kernel disagrees with ssd_phases_ref (max "
+              f"abs err {model_err})")
+        del model
         zero_ok = torch.allclose(torch.zeros_like(want), want, **SSD_TOL)
         flip_ok = torch.allclose(-want, want, **SSD_TOL)
         check(not zero_ok and not flip_ok,
@@ -998,6 +1024,7 @@ def ssd_kernel_phase(torch):
                                  alog_rows=B if per_row else 1, **dims)
         big = B * S >= 32768
         row = {"shape": label, "max_abs_err": err,
+               "model_err": model_err, "model_vs_ssd_ref": model_ref_err,
                "zero_err": float(want.abs().max()),
                "row0_a_log_err": row0_err,
                "mean_abs_y": y_abs,
@@ -1008,7 +1035,14 @@ def ssd_kernel_phase(torch):
                                    launches=1, repeats=1,
                                    warmup=0 if big else 1),
                # no single PyTorch call computes the scan
-               "library_ms": None}
+               "library_ms": None,
+               "kernels_per_call": launched["ssd_fwd_kernels"],
+               "heads_per_block": pl.heads_per_block,
+               "scratch_bytes": pl.scratch_bytes,
+               # the bytes the three kernels move (the states' four passes
+               # and the second read of the inputs included), over 3.35 TB/s
+               "design_bytes": pl.design_bytes,
+               "design_bound_ms": pl.design_bytes / HBM_BYTES_PER_S * 1e3}
         row.update(bound_fields(torch, ins[0].dtype, nbytes, flops,
                                 row["ms"]))
         rows.append(row)
@@ -1990,7 +2024,9 @@ def prefill_phase(torch, cfg, params, label):
     """(g) / (j): ``make_prefill_step`` at full width, bf16 activations, at
     PREFILL_SHAPES: wall per call (3 calls after a warm-up), ssd_fwd and
     flash_attention_fwd launches (one per layer and one per shared
-    invocation, each call), and one call under the profiler."""
+    invocation, each call), the kernels the ssd_fwd calls launched, and one
+    call under the profiler."""
+    from repro_torch.kernels.ssd import kernel as KS
     from repro_torch.launch import steps
     from repro_torch.models import ssm_lm
     step = steps.make_prefill_step(cfg)
@@ -2015,6 +2051,7 @@ def prefill_phase(torch, cfg, params, label):
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             launches = _lm_launches()
+            ssd_kernels = KS.LAUNCHES["ssd_fwd_kernels"]
             check(launches == (3 * per_call[0], 3 * per_call[1]),
                   f"{label} prefill ({B}, {S}): ssd_fwd and "
                   f"flash_attention_fwd launched {launches} times in 3 "
@@ -2024,6 +2061,7 @@ def prefill_phase(torch, cfg, params, label):
                "wall_ms_median": statistics.median(walls) * 1e3,
                "tokens_per_s": B * S / statistics.median(walls),
                "ssd_fwd_launches_per_call": launches[0] // 3,
+               "ssd_fwd_kernels_per_call": ssd_kernels / 3,
                "flash_attention_fwd_launches_per_call": launches[1] // 3,
                "profile": prof}
         out[f"{B}x{S}"] = row
@@ -2201,6 +2239,8 @@ def run_phases(torch):
         if name in TABLE_KERNELS:
             entry["foreach_ms"] = main.get("foreach_ms")
         if name == "ssd_fwd":
+            entry["design_bytes"] = main["design_bytes"]
+            entry["kernels_per_call"] = main["kernels_per_call"]
             entry["launches_int8"] = lm["int8"]["ssd_fwd_launches"]
             entry["launches_zamba2"] = {
                 k: v["ssd_fwd_launches"] for k, v in zl.items()}

@@ -9,8 +9,14 @@ interpret mode within 5e-4 (the chunked algorithm against the sequential
 one), bf16 inputs within 5e-2; the port's ``ssd_chunked`` against the JAX
 one within 1e-4 (see the test).  Gradients within rtol 1e-4.  Every
 comparison also shows that a zero output and a sign-flipped output fail it.
-The CUDA kernel is held against ``ssd_ref`` on the card by ``chip_smoke.py``.
+``ssd_phases_ref`` (the CUDA kernels' three phases, with their hi/lo bf16
+split) against the JAX ``ssd_ref`` and the interpret-mode Pallas ``ssd_fwd``
+within 5e-4, at inputs scaled as ``chip_smoke.py``'s (|y| of order 1).  The
+CUDA kernels are held against ``ssd_ref`` and ``ssd_phases_ref`` on the card
+by ``chip_smoke.py``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +30,7 @@ from repro.models.mamba2 import ssd_chunked as j_ssd_chunked
 from repro_torch.convert import to_tensor
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ref import ssd_phases_ref, ssd_ref
 from repro_torch.models.mamba2 import SSDScan, ssd_chunked, ssd_scan
 
 # (B, S, H, P, G, N, chunk), as tests/test_kernels.py's SSD_SHAPES
@@ -93,7 +99,7 @@ def test_ssd_ref_matches_jax_ref_and_pallas_kernel(shape, jax_oracles):
     for mode in ("auto", "ref"):
         np.testing.assert_array_equal(
             ops.ssd(x, dt, a_log, Bm, Cm, chunk=shape[-1], mode=mode), y)
-    assert K.LAUNCHES == {"ssd_fwd": 0}
+    assert K.LAUNCHES == {"ssd_fwd": 0, "ssd_fwd_kernels": 0}
 
 
 @pytest.mark.parametrize("shape", SSD_SHAPES)
@@ -213,5 +219,138 @@ def test_ssd_kernel_wrapper_refuses_cpu_tensors_and_bad_inputs():
         ops.ssd(x, dt, a_log, Bm, Cm, chunk=16, mode="kernel")
     with pytest.raises(ValueError, match="mode"):
         ops.ssd(x, dt, a_log, Bm, Cm, chunk=16, mode="seq")
-    assert K.LAUNCHES == {"ssd_fwd": 0}
+    assert K.LAUNCHES == {"ssd_fwd": 0, "ssd_fwd_kernels": 0}
     assert SSDScan.generate_vmap_rule is False
+
+
+# ssd_phases_ref: H 4, P 32, N 16 and 64, G 1 and 2, shared and per-row
+# a_log, nc 1 and 4 (S 64 at chunk 64 and 16), f32 and bf16 x/B/C
+PHASE_NS, PHASE_GS, PHASE_CHUNKS = (16, 64), (1, 2), (64, 16)
+PHASE_ROWS, PHASE_S, PHASE_H, PHASE_P = 2, 64, 4, 32
+PHASE_TOL = 5e-4
+
+
+def _phase_inputs(N, G, dtype, per_row, seed=11):
+    """Inputs scaled as chip_smoke.ssd_inputs (dt a softplus, A from -1 to
+    -16, C.B of order 1), as numpy f32; for bf16 x/B/C the values are bf16
+    ones, which the JAX functions widen to the same f32."""
+    rng = np.random.RandomState(seed + N + 10 * G)
+    R, S, H, P = PHASE_ROWS, PHASE_S, PHASE_H, PHASE_P
+    x = rng.randn(R, S, H, P).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(R, S, H) - 1.0)).astype(np.float32)
+    a_log = np.log(np.linspace(1.0, 16.0, H)).astype(np.float32)
+    if per_row:
+        a_log = np.stack([np.roll(a_log, 3 * r) for r in range(R)])
+    Bm = (rng.randn(R, S, G, N) / N ** 0.25).astype(np.float32)
+    Cm = (rng.randn(R, S, G, N) / N ** 0.25).astype(np.float32)
+    if dtype == "bf16":
+        x, Bm, Cm = (torch.from_numpy(a).bfloat16().float().numpy()
+                     for a in (x, Bm, Cm))
+    return x, dt, a_log, Bm, Cm
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_ref():
+    return jax.jit(j_ssd_ref)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_kernel(chunk):
+    return jax.jit(functools.partial(j_ssd_fwd, chunk=chunk, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def phase_oracles():
+    """The JAX ssd_ref and the interpret-mode Pallas ssd_fwd at chunk 64 and
+    16, row by row (each row with its own a_log row), for every case."""
+    out = {}
+    for N in PHASE_NS:
+        for G in PHASE_GS:
+            for dtype in ("f32", "bf16"):
+                for per_row in (False, True):
+                    x, dt, a_log, Bm, Cm = _phase_inputs(N, G, dtype,
+                                                         per_row)
+                    res = {"ref": [], 64: [], 16: []}
+                    for r in range(PHASE_ROWS):
+                        ins = [jnp.asarray(a[r:r + 1]) for a in (x, dt)] \
+                            + [jnp.asarray(a_log[r] if per_row else a_log)] \
+                            + [jnp.asarray(a[r:r + 1]) for a in (Bm, Cm)]
+                        res["ref"].append(np.asarray(_jit_ref()(*ins)))
+                        for c in PHASE_CHUNKS:
+                            res[c].append(np.asarray(_jit_kernel(c)(*ins)))
+                    out[N, G, dtype, per_row] = {
+                        k: np.concatenate(v) for k, v in res.items()}
+    return out
+
+
+def _phase_torch(N, G, dtype, per_row):
+    x, dt, a_log, Bm, Cm = _t(*_phase_inputs(N, G, dtype, per_row))
+    if dtype == "bf16":
+        x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    return x, dt, a_log, Bm, Cm
+
+
+PHASE_CASES = [(N, G, per_row, chunk, dtype) for N in PHASE_NS
+               for G in PHASE_GS for per_row in (False, True)
+               for chunk in PHASE_CHUNKS for dtype in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("N,G,per_row,chunk,dtype", PHASE_CASES)
+def test_ssd_phases_ref_matches_jax_ref_and_pallas_kernel(
+        N, G, per_row, chunk, dtype, phase_oracles):
+    """The plain model of the kernels' arithmetic (end states, state pass,
+    chunk scan; hi/lo bf16 split of the f32 side for bf16 inputs) within
+    5e-4 of the sequential JAX ssd_ref and the chunked Pallas kernel."""
+    want = phase_oracles[N, G, dtype, per_row]
+    y = ssd_phases_ref(*_phase_torch(N, G, dtype, per_row), chunk=chunk)
+    assert y.dtype == torch.float32 and tuple(y.shape) == want["ref"].shape
+    assert 0.1 < float(np.abs(want["ref"]).mean()) < 10.0
+    _holds(y, want["ref"], PHASE_TOL)
+    _holds(y, want[chunk], PHASE_TOL)
+
+
+@pytest.mark.parametrize("N,G,per_row,chunk", [
+    c[:4] for c in PHASE_CASES if c[4] == "bf16"])
+def test_ssd_phases_ref_needs_the_lo_half(N, G, per_row, chunk,
+                                          phase_oracles):
+    """One bf16 rounding of each f32 side (S', x w dt, the state; no lo
+    half) misses 5e-4 against ssd_ref at every case, by more than ten
+    times (9e-3 to 2.3e-2 at |y| ~ 0.3): the evidence that the kernels'
+    hi/lo split is needed.  With the split the model lands within 1e-4."""
+    want = phase_oracles[N, G, "bf16", per_row]["ref"]
+    ins = _phase_torch(N, G, "bf16", per_row)
+    hi_only = ssd_phases_ref(*ins, chunk=chunk, split=False)
+    split = ssd_phases_ref(*ins, chunk=chunk)
+    assert float(np.abs(hi_only.numpy() - want).max()) > 10 * PHASE_TOL
+    assert not np.allclose(hi_only.numpy(), want, atol=PHASE_TOL,
+                           rtol=PHASE_TOL)
+    assert float(np.abs(split.numpy() - want).max()) < 1e-4
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 128, 24, 64, 1, 128, 128), (8, 4096, 24, 64, 1, 128, 128),
+    (1, 32768, 24, 64, 1, 128, 128), (8, 4096, 64, 64, 1, 64, 128),
+    (2, 1024, 24, 64, 2, 128, 128), (2, 1024, 24, 64, 1, 128, 64),
+    (1, 100, 6, 16, 3, 16, 128)])
+def test_ssd_kernel_plan(shape):
+    """What ssd_fwd launches, allocates and moves: one kernel (no scratch)
+    for a one-chunk sequence, else three; the tiles of heads cover each
+    group; the design moves at least the bound's bytes, and the states'
+    four passes on top."""
+    B, S, H, P, G, N, chunk = shape
+    pl = K.plan(B, S, H, P, G, N, chunk, 2)
+    rep = H // G
+    assert pl.chunk == min(chunk, S) and pl.n_chunks == S // pl.chunk
+    assert 1 <= pl.heads_per_block <= K.MAX_HEADS
+    assert pl.head_tiles * pl.heads_per_block >= rep
+    assert (pl.head_tiles - 1) * pl.heads_per_block < rep
+    slots = B * (pl.n_chunks - 1)
+    assert pl.kernels == (3 if pl.n_chunks > 1 else 1)
+    assert (pl.state_floats, pl.decay_floats) == (slots * H * P * N,
+                                                  slots * H)
+    assert pl.scratch_bytes == 4 * (pl.state_floats + pl.decay_floats)
+    bound = B * S * H * P * (2 + 4) + B * S * H * 4 + 2 * B * S * G * N * 2
+    assert pl.design_bytes >= bound + 4 * 4 * pl.state_floats
+    # a grid of at least two blocks per SM where the heads allow it
+    blocks = B * pl.n_chunks * G * pl.head_tiles
+    assert blocks >= K.TARGET_BLOCKS or pl.heads_per_block == 1

@@ -23,11 +23,14 @@ Phases; any failure exits non-zero and prints no result line:
      (G = 2, chunk 64); every case also against ``ssd_phases_ref`` (the
      plain model of the kernels' three phases) within SSD_TOL, with the
      kernels per call, scratch bytes and the design's bytes reported.
-     ``flash_attention_fwd`` against ``attention_ref`` within FLASH_TOL at
-     FLASH_CASES ((i)'s cohort, (2, 4096) f32 and bf16, gemma2-like hd 256
-     with softcap and GQA, MQA, a tail at S = 1000, and (1, 32768), checked
-     on its first and last 256 rows).  Each case also shows that a no-op (a
-     zero output for the scan) and a sign-flipped result fail the same
+     ``flash_attention_fwd`` against ``attention_ref`` and
+     ``attention_tiles_ref`` (the plain model of its kernels' arithmetic)
+     within FLASH_TOL at FLASH_CASES ((i)'s cohort, (2, 4096) f32 and
+     bf16, gemma2-like hd 256 with softcap and GQA, MQA, a tail at S =
+     1000, (1, 32768), checked on its first and last 256 rows, (j)'s (8,
+     4096) with its plain versions one batch row at a time, and bf16 tail,
+     hd 128 MQA and hd 128 softcap cases).  Each case also shows that a
+     no-op (a zero output for the scan) and a sign-flipped result fail the same
      check, each per-row case that row 0's a_log for every row does, each
      windowed attention case that the output without the window does, and
      each softcap case that the output without the softcap does.
@@ -62,7 +65,8 @@ Phases; any failure exits non-zero and prints no result line:
      FLOPs over the card's peak for the operands' type (for ``ssd_fwd`` and
      ``flash_attention_fwd``: 989 TFLOP/s on the bf16 tensor cores, 67
      TFLOP/s in f32 outside them), with the f32 CUDA-core bound, the
-     ceiling of the kernels' present design, beside it; ``library_ms``
+     ceiling of a design that multiplies on the CUDA cores (the f32 paths,
+     bf16 ``flash_attention_fwd`` at hd 256), beside it; ``library_ms``
      times one PyTorch call that
      computes the same function (a yardstick the port never calls; none
      exists for the scan, for attention with a softcap, for ``prox_inner``,
@@ -875,11 +879,11 @@ SSD_TOL = dict(atol=5e-4, rtol=5e-4)
 # test_ssd_chunk_invariance)
 SSD_CHUNK_TOL = dict(atol=1e-4, rtol=1e-4)
 # the card's peak rate for the operands' type (NVIDIA's data sheet, H100
-# SXM, dense): bf16 operands could run on the tensor cores with f32
-# accumulation and lose nothing against the kernels' f32 FMAs on widened
-# bf16, so the bound of a bf16 case is taken at the bf16 tensor-core rate;
-# the f32 CUDA-core rate, the ceiling of the kernels' present design, is
-# reported beside it
+# SXM, dense): bf16 operands can run on the tensor cores with f32
+# accumulation and lose nothing against f32 FMAs on widened bf16, so the
+# bound of a bf16 case is taken at the bf16 tensor-core rate; the f32
+# CUDA-core rate, the ceiling of a design that multiplies on the CUDA cores,
+# is reported beside it
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # bf16 tensor cores
 
@@ -1079,7 +1083,11 @@ FLASH_TOL = {"f32": dict(atol=2e-5, rtol=2e-5),
 # FLASH_TOL in bf16; logits large enough for a cap of 50 to bind in bf16
 # are ones that the reference's bf16 q.k rounds by more than FLASH_TOL
 # (measured on the CPU at (1, 2048, 8, 4, 256)), so the bf16 cases take a
-# cap of 5, which moves the output by about 20 x FLASH_TOL.
+# cap of 5, which moves the output by about 20 x FLASH_TOL.  Then (j)'s own
+# prefill shape (8, 4096) with its 4096 window, which is causal attention
+# (SDPA's causal call is its library_ms), and bf16 cases for the wgmma
+# kernel's other paths: a tail with GQA 4:1 and a window, hd 128 MQA, and
+# hd 128 with GQA 4:1, a window and a softcap of 5.
 FLASH_CASES = (
     (4, 128, 32, 32, 64, "bf16", 4096, 0.0),
     (2, 4096, 32, 32, 64, "f32", 1024, 0.0),
@@ -1091,6 +1099,10 @@ FLASH_CASES = (
     (1, 1024, 8, 1, 128, "f32", 0, 0.0),
     (1, 1000, 8, 2, 64, "f32", 300, 0.0),
     (1, 32768, 32, 32, 64, "bf16", 4096, 0.0),
+    (8, 4096, 32, 32, 64, "bf16", 4096, 0.0),
+    (1, 1000, 8, 2, 64, "bf16", 300, 0.0),
+    (1, 1024, 8, 1, 128, "bf16", 0, 0.0),
+    (1, 2048, 16, 4, 128, "bf16", 512, 5.0),
 )
 FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # past this length the plain version's logits do not fit: the case is
@@ -1099,6 +1111,10 @@ FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # plain version on the last window + FLASH_EDGE positions, which hold those
 # rows' whole windows)
 FLASH_PLAIN_MAX_S, FLASH_EDGE = 8192, 256
+# above this many bytes of f32 logits (B·Hq·S²·4) the plain versions run one
+# batch row at a time: attention_ref at (8, 4096, 32 heads) would hold
+# several 17 GB tensors at once
+FLASH_PLAIN_MAX_LOGITS_BYTES = 2 ** 33
 
 
 def live_pairs(S, window):
@@ -1155,13 +1171,15 @@ def sdpa_library(torch, q, k, v, window, cap, long):
 
 
 def flash_kernel_phase(torch):
-    """flash_attention_fwd against attention_ref on the card at
-    FLASH_CASES within FLASH_TOL; a zero and a sign-flipped output must
-    fail the same check, in every windowed case (window < S) so must the
-    output without the window, and in every softcap case the output
-    without the softcap."""
+    """flash_attention_fwd against attention_ref and against
+    attention_tiles_ref (the plain model of the kernels' arithmetic, at
+    ``K.key_tile``'s tile) on the card at FLASH_CASES within FLASH_TOL; a
+    zero and a sign-flipped output must fail the same check, in every
+    windowed case (window < S) so must the output without the window, and
+    in every softcap case the output without the softcap."""
     from repro_torch.kernels.flash_attention import kernel as K
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                        attention_tiles_ref)
     g = torch.Generator(device="cuda").manual_seed(3)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     rows = []
@@ -1179,23 +1197,46 @@ def flash_kernel_phase(torch):
         check(bool(torch.isfinite(got).all()),
               f"flash_attention_fwd {label}: output not finite")
         windowed = 0 < window < S
+        block_k = K.key_tile(q.dtype, hd)
+        rowwise = B * Hq * S * S * 4 > FLASH_PLAIN_MAX_LOGITS_BYTES
+
+        def by_rows(fn, **kw2):
+            # fn on q, k, v; one batch row at a time where all rows' logits
+            # would not fit
+            if not rowwise:
+                return fn(q, k, v, **kw2)
+            return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw2)
+                              for b in range(B)])
         if not long:
             def plain():
-                return attention_ref(q, k, v, **kw)
+                return by_rows(attention_ref, **kw)
             pairs = [(got, plain())]
-            nowin = [attention_ref(q, k, v, causal=True, softcap=cap)] \
+            tile_pairs = [(got, by_rows(attention_tiles_ref, **kw,
+                                        block_k=block_k))]
+            nowin = [by_rows(attention_ref, causal=True, softcap=cap)] \
                 if windowed else []
-            nocap = [attention_ref(q, k, v, causal=True, window=window)] \
+            nocap = [by_rows(attention_ref, causal=True, window=window)] \
                 if cap else []
-            plain_note = "whole case"
+            plain_note = "whole case" + (
+                f", one batch row at a time ({B} rows)" if rowwise else "")
         else:
             E, L = FLASH_EDGE, window + FLASH_EDGE
+            # the last L positions start on a key tile, as the kernel's do
+            check((S - L) % block_k == 0,
+                  f"flash_attention_fwd {label}: the tail check's first "
+                  f"position {S - L} is not on a {block_k}-key tile")
 
             def plain():
                 return attention_ref(q[:, -L:], k[:, -L:], v[:, -L:],
                                      **kw)[:, -E:]
             head = attention_ref(q[:, :E], k[:, :E], v[:, :E], **kw)
             pairs = [(got[:, :E], head), (got[:, -E:], plain())]
+            tile_pairs = [
+                (got[:, :E], attention_tiles_ref(
+                    q[:, :E], k[:, :E], v[:, :E], **kw, block_k=block_k)),
+                (got[:, -E:], attention_tiles_ref(
+                    q[:, -L:], k[:, -L:], v[:, -L:], **kw,
+                    block_k=block_k)[:, -E:])]
             # the plain version cannot take the whole sequence without the
             # window either: the kernel's own no-window rows stand for it
             nowin = [K.flash_attention_fwd(q, k, v, causal=True,
@@ -1212,6 +1253,12 @@ def flash_kernel_phase(torch):
                   for a, b in pairs),
               f"flash_attention_fwd {label}: kernel disagrees with "
               f"attention_ref (max abs err {err})")
+        tiles_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in tile_pairs)
+        check(all(torch.allclose(a.float(), b.float(), **tol)
+                  for a, b in tile_pairs),
+              f"flash_attention_fwd {label}: kernel disagrees with "
+              f"attention_tiles_ref (max abs err {tiles_err})")
         want = pairs[-1][1].float()
         check(not torch.allclose(torch.zeros_like(want), want, **tol)
               and not torch.allclose(-want, want, **tol),
@@ -1251,6 +1298,7 @@ def flash_kernel_phase(torch):
                 lib_err = float((lib_out.float() - want).abs().max())
                 del lib_out
         row = {"shape": label, "max_abs_err": err, "tol": tol,
+               "tiles_max_abs_err": tiles_err, "tiles_block_k": block_k,
                "zero_err": float(want.abs().max()),
                "no_window_err": nowin_err, "no_softcap_err": nocap_err,
                "mean_abs_out": out_abs,
@@ -1268,7 +1316,7 @@ def flash_kernel_phase(torch):
         rows.append(row)
         print(f"kernel flash_attention_fwd {label}: {json.dumps(row)}",
               flush=True)
-        del q, k, v, got, pairs, nowin, nocap, want, lib
+        del q, k, v, got, pairs, tile_pairs, nowin, nocap, want, lib
     torch.cuda.empty_cache()
     return rows
 

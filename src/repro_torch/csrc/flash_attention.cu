@@ -9,53 +9,99 @@
 //   live    = j <= i and i - window < j (window > 0) and j < S
 //   out[i]  = sum_{live j} exp(s[i][j]) v[j] / sum_{live j} exp(s[i][j])
 //
-// in f32, whatever the storage dtype (f32 or bf16) of q, k, v and out.  The
-// mask is always causal: the port runs every other mask in plain PyTorch
-// (repro_torch/models/attention.py), so the kernel has no non-causal walk.
+// with the softmax in f32, whatever the storage dtype (f32 or bf16) of q, k,
+// v and out.  The mask is always causal: the port runs every other mask in
+// plain PyTorch (repro_torch/models/attention.py), so the kernel has no
+// non-causal walk.  Both kernels below stream only the key tiles that meet a
+// block's causal cone and window: from the tile that holds q0 - window + 1
+// to the diagonal tile (the TPU kernel streams every tile up to the
+// diagonal).  A masked score is SELECTED to -inf and its weight to exactly 0,
+// never multiplied by a mask; a row whose first tiles are wholly masked keeps
+// m = -inf and l = 0 until its first live key, and its rescale factor is
+// then taken as 1, not exp(-inf + inf).
 //
 // What bounds it on an H100 SXM.  Per head it does 4 * hd FLOPs for each
 // live (query, key) pair (q.k and p.v); it must read q, k and v once and
-// write out once.  At S = 4096 with a window of 1024 that is about a
-// thousand FLOPs per byte, so it is bound by operations.  It runs them on
-// the CUDA cores in f32, so its bound is the f32 peak, 67 TFLOP/s; the bf16
-// tensor cores (989 TFLOP/s, through wgmma) are the later target.
+// write out once.  At S = 4096 that is about a thousand FLOPs per byte, so
+// it is bound by operations: in bf16 by the tensor cores' 989 TFLOP/s.
 //
-// Design.  The TPU kernel walks the key blocks of one query block in a
-// fori_loop and keeps the online softmax's (m, l, acc) in VMEM; here one
-// block of 256 threads owns one (batch row, query head, 64-row query tile)
-// and walks the key tiles itself, with (m, l, acc) in registers.  Nothing is
-// carried between blocks.  The block stages its query tile once, transposed
-// in shared memory as f32 (bf16 is widened at load); per key tile of 64 rows
-// it stages K (transposed) and V, then
+// Two kernels, picked by dtype and head dim (never by a try):
+//
+// flash_attention_fwd_wgmma<D>, bf16 at hd 64 and 128.  One block of three
+// warpgroups owns 128 query rows of one (batch row, query head): warpgroup 2
+// is the producer, 0 and 1 the consumers of 64 rows each.
+//   * Loads.  One thread of the producer issues TMA loads through 3-D
+//     (B, S, H * hd) tensor maps with 128-byte swizzle (one hd-64 bf16 row is
+//     128 bytes; hd 128 is two such column slices): Q once, then K and V
+//     tiles of 128 keys into a ring of 3 stages with a full and an empty
+//     mbarrier each (shared memory 112 KB at hd 64, 225 KB at 128).  A key
+//     tile never reads into the next batch row, and rows past S arrive as
+//     zeros.  The maps are encoded on the host at every call
+//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//     nothing links libcuda; the whole C call, encoding included, took 6.4
+//     us of host time on an NVIDIA H100 80GB HBM3 at 700 W).
+//     The producer gives its registers to the consumers (setmaxnreg 24 /
+//     240).
+//   * S = Q.K^T: wgmma m64n128k16, bf16 operands from shared memory (both
+//     K-major), f32 accumulators, hd / 16 instructions.
+//   * Online softmax in registers: raw scores (capped first, cap * tanh,
+//     where cap > 0) masked by select only on the diagonal, window-edge and
+//     past-S tiles of each consumer (interior tiles skip the mask code), row
+//     max and sum reduced over the 4 lanes that share an accumulator row,
+//     weights exp2(s * mul - m) with log2 e folded into mul (ex2.approx.ftz,
+//     one FMA before it).  l sums the f32 weights; P goes to bf16 pairs in
+//     the register fragment of wgmma's A, which is the accumulator's layout.
+//   * O += P.V: wgmma m64n{hd}k16 with A = P from registers and B = V from
+//     shared memory, MN-major (the transposed descriptor 16-bit types
+//     allow), 8 instructions a tile.
+//   * Overlap.  At tile i a consumer issues S of tile i + 1 and P.V of tile
+//     i together, waits for S only, runs tile i + 1's softmax while P.V is
+//     on the tensor cores, then waits for P.V, frees the stage (empty
+//     barrier, one arrival a consumer warp) and rescales O.  The last tile
+//     is peeled off the loop, so that no wgmma is issued under a branch
+//     (ptxas serialises wgmma whose accumulators a branch merge touches).
+//     The other consumer fills what gaps remain.
+//   * Out: O / l as bf16 into the consumer's own 64 rows of the Q tile, in
+//     the swizzled layout, then one TMA store a column slice (rows past S
+//     are clipped by the map).
+//   * Block order: within each (b, h), query tiles are issued from the last
+//     (the heaviest causal cone) to the first, so the grid's tail is light,
+//     and the blocks of one (b, h) run together and share its K/V in L2.
+// What it still leaves: the exp2 of every score competes with the tensor
+// cores (at hd 64, 128 x 128 weights take the multi-function unit as long
+// as the tile's products take the tensor cores); the diagonal and
+// window-edge tiles compute their masked parts; a consumer whose rows see
+// none of a tile still multiplies it; the tensor maps cost host time at
+// every call.
+//
+// flash_attention_fwd_kernel<T, D>, f32 at every head dim and bf16 at hd
+// 256 (whose Q tile, two K/V stages and registers would not fit the wgmma
+// design above; no ported path runs bf16 hd 256).  The f32 checks need 2e-5,
+// which bf16 products cannot give, so f32 stays on the CUDA cores, bound by
+// their 67 TFLOP/s.  One block of 256 threads owns one (batch row, query
+// head, 64-row query tile) and walks the key tiles itself, with (m, l, acc)
+// in registers.  It stages its query tile once, transposed in shared memory
+// as f32 (bf16 is widened at load); per key tile of 64 rows it stages K
+// (transposed) and V with plain loads, then
 //   1. forms the 64 x 64 scores with a 4 x 4 register tile per thread
 //      (rows 4ty+i, keys 4tx+j; float4 reads of the transposed tiles);
-//   2. scales, caps and masks them -- a masked score is SELECTED to -inf and
-//      its weight to exactly 0, never multiplied by a mask -- and updates the
-//      online softmax of its 4 rows, reducing over the 16 lanes that share a
-//      row with warp shuffles; the weights go to shared memory, read back
-//      only by the same warp;
+//   2. scales, caps and masks them and updates the online softmax of its 4
+//      rows, reducing over the 16 lanes that share a row with warp
+//      shuffles; the weights go to shared memory, read back only by the
+//      same warp;
 //   3. adds P.V for its 4 rows and hd/16 columns.
-// It streams only the key tiles that meet the block's causal cone and
-// window: from the tile that holds q0 - window + 1 to the diagonal tile.
-// (The TPU kernel streams every tile up to the diagonal.)  A row whose
-// first tiles are wholly masked keeps m = -inf and l = 0 until its first
-// live key: the rescale factor is then taken as 1, not exp(-inf + inf).
 // Shared memory is 3 * 64 * hd + 64 * 64 floats: 64 KB at hd = 64, 112 KB at
-// 128, 208 KB at 256 (one block per SM there).  Rows past S are computed
-// but not written; keys past S are masked.
-//
-// What this simple design leaves on the table (later work): the products
-// run as f32 FMA loops on the CUDA cores, not wgmma on the tensor cores;
-// tiles are staged by every thread with plain loads, not TMA, and not
-// double-buffered; the diagonal and window-edge tiles compute their masked
-// halves.
+// 128, 208 KB at 256 (one block per SM there).  Rows past S are computed but
+// not written; keys past S are masked.
 //
 // The launch goes on the stream the caller passes (PyTorch's current
-// stream); the kernel allocates nothing and does not synchronise.
-// flash_attention_fwd returns the error of cudaFuncSetAttribute if the
-// shared-memory size is refused, else the value of cudaGetLastError() after
-// the launch.
+// stream); the kernels allocate nothing and do not synchronise.
+// flash_attention_fwd returns cudaErrorInvalidValue for an argument it does
+// not take (a bf16 pointer off 16 bytes, a tensor map the driver refuses),
+// the error of cudaFuncSetAttribute if the shared-memory size is refused,
+// else the value of cudaGetLastError() after the launch.
 
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -63,6 +109,10 @@
 #include <cstdint>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32, and bf16 at hd 256: f32 FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;  // query rows per block, key rows per tile
@@ -290,6 +340,616 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 64 / 128: wgmma products fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWg = 128;               // threads of a warpgroup
+constexpr int kWgmmaThreads = 3 * kWg;  // consumers 0 and 1, producer 2
+constexpr int kBlockQ = 128;           // query rows per block, 64 a consumer
+constexpr int kBlockK = 128;           // key rows per tile
+constexpr int kSliceCols = 64;         // bf16 columns of a 128-byte row
+constexpr int kSliceRowBytes = 128;
+constexpr int kConsumerWarps = 8;      // arrivals that free a stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WgmmaCfg {
+  static constexpr int kSlices = D / kSliceCols;
+  static constexpr int kStages = 3;
+  // slice c of the Q tile at c * kQSlice, of a K or V tile at c * kKSlice
+  static constexpr int kQSlice = kBlockQ * kSliceRowBytes;
+  static constexpr int kKSlice = kBlockK * kSliceRowBytes;
+  static constexpr int kQBytes = kSlices * kQSlice;
+  static constexpr int kTileBytes = kSlices * kKSlice;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  // + 1024 so that the base can be rounded up to the swizzle's 1024 bytes
+  static constexpr size_t kSmemBytes =
+      kBarOffset + (2 * kStages + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The 64-column box at (col, row, batch) of a (B, S, H * hd) tensor map into
+// shared memory at dst; completion is counted on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int col, int row,
+                                          int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma's descriptor of an operand in shared memory at byte address addr,
+// 128-byte swizzle (layout 1, bits 62-63): leading and stride byte offsets
+// in 16-byte units.  K-major (Q, K): rows of 128 bytes, 8-row groups 1024
+// bytes apart (the stride offset; the leading one is unused), and a step of
+// 16 columns along K adds 32 bytes to the address.  MN-major (V): 8-key
+// groups 1024 bytes apart, 64-column slices lbo bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers across
+// the fence, commit and wait (their asm names none of them).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// 2^x; -inf gives 0 (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 128, f32) = (scale_d ? d : 0) + A.B, A and B in shared memory,
+// both K-major (trans-a = trans-b = 0).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A.B, A (64 x 16 bf16) from registers in the
+// accumulator-matching fragment, B in shared memory MN-major (trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A.B, A (64 x 16 bf16) from registers in the
+// accumulator-matching fragment, B in shared memory MN-major (trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+// S = Q.K^T of one consumer's 64 rows (its Q slice rows at sQw) against the
+// key tile at kst: hd / 16 instructions, committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[kBlockK / 2],
+                                             uint32_t sQw, uint32_t kst) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;  // 16 columns are 32 bytes
+    wgmma_ss_n128(
+        s, smem_desc(sQw + (kk / 4) * WgmmaCfg<D>::kQSlice + col, 16, 1024),
+        smem_desc(kst + (kk / 4) * WgmmaCfg<D>::kKSlice + col, 16, 1024),
+        kk > 0);
+  }
+  wgmma_commit();
+}
+
+// o += P.V of the V tile at vst, 16 keys an instruction, committed as one
+// group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[kBlockK / 4],
+                                         uint32_t vst) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs<D>(o, a, smem_desc(vst + kk * 16 * kSliceRowBytes,
+                                WgmmaCfg<D>::kKSlice, 1024));
+  }
+  wgmma_commit();
+}
+
+// What a consumer thread's softmax needs to know of its rows: the
+// consumer's first row, this thread's row (and row + 8), its column quad,
+// and mul, the factor into log2 units of a raw (or capped) score.
+struct TileRows {
+  int first, row, cq, S, window;
+  float softcap, scale, mul;
+};
+
+// The online softmax of one key tile (keys k0 ..), in place: the raw scores
+// s become the f32 weights exp2(s * mul - m_new), m the new running max (in
+// log2 units) of rows `row` (r = 0) and row + 8 (r = 1), alpha the factor
+// that rescales the rows' earlier o and l, rs the rows' partial sums of the
+// weights (over this thread's columns).  Scores are capped first (cap > 0)
+// and masked by select to -inf only where the tile meets a masked pair of
+// the consumer's 64 rows.
+__device__ __forceinline__ void tile_weights(float (&s)[kBlockK / 2],
+                                             float (&m)[2], float (&alpha)[2],
+                                             float (&rs)[2], int k0,
+                                             const TileRows& q) {
+  if (q.softcap > 0.f) {
+#pragma unroll
+    for (int e = 0; e < kBlockK / 2; ++e) {
+      s[e] = q.softcap * tanhf(s[e] * q.scale / q.softcap);
+    }
+  }
+  const bool edge = k0 + kBlockK - 1 > q.first || k0 + kBlockK > q.S ||
+                    (q.window > 0 && k0 <= q.first + 63 - q.window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q.row + (e >> 1) * 8;
+        const int kj = k0 + 8 * j + 2 * q.cq + (e & 1);
+        const bool live =
+            kj < q.S && kj <= qi && (q.window <= 0 || kj > qi - q.window);
+        s[4 * j + e] = live ? s[4 * j + e] : -INFINITY;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      mt = fmaxf(mt, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[r], mt * q.mul);  // mul > 0
+    // no live key yet: nothing to rescale (exp(-inf + inf) would be NaN),
+    // and every weight is exp2(-inf) = 0
+    alpha[r] = m_new == -INFINITY ? 1.f : ex2(m[r] - m_new);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float w = ex2(fmaf(s[4 * j + 2 * r + e], q.mul, -m_use));
+        s[4 * j + 2 * r + e] = w;
+        sum += w;
+      }
+    }
+    rs[r] = sum;
+    m[r] = m_new;
+  }
+}
+
+// Applies a tile's weights: o and l rescaled by alpha, l += rs, and the
+// weights s packed into P, bf16 pairs in wgmma's A fragment (which is the
+// accumulator's layout: p[i] holds s[2i], s[2i + 1]).
+template <int D>
+__device__ __forceinline__ void next_weights(float (&o)[D / 2], float (&l)[2],
+                                             uint32_t (&p)[kBlockK / 4],
+                                             const float (&s)[kBlockK / 2],
+                                             const float (&alpha)[2],
+                                             const float (&rs)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 2 * r] *= alpha[r];
+      o[4 * j + 2 * r + 1] *= alpha[r];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kBlockK / 4; ++e) {
+    p[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+  }
+}
+
+// q, out: (rows, S, Hq * D); k, v: (rows, S, Hkv * D), as tensor maps with
+// 64-column boxes of kBlockQ (q), kBlockK (k, v) and 64 (out) rows.  Grid
+// (ceil(S / kBlockQ), Hq, rows), kWgmmaThreads threads.
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap to, int S,
+                              int Hq, int Hkv, int window, float softcap,
+                              float scale) {
+  using Cfg = WgmmaCfg<D>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + Cfg::kQBytes;              // stage st: + st * tile
+  const uint32_t sV = sK + kStages * Cfg::kTileBytes;
+  const uint32_t full = base + Cfg::kBarOffset;       // + 8 * st
+  const uint32_t empty = full + 8 * kStages;          // + 8 * st
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kBlockQ;
+  const int q_last = min(q0 + kBlockQ, S) - 1;
+  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kBlockK : 0;
+  const int n_tiles = q_last / kBlockK + 1 - kt_begin;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {
+    // the producer: one thread keeps the ring's loads in flight
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * kWg) {
+      mbar_expect_tx(qbar, Cfg::kQBytes);
+#pragma unroll
+      for (int c = 0; c < Cfg::kSlices; ++c) {
+        tma_load(sQ + c * Cfg::kQSlice, &tq, qbar, h * D + c * kSliceCols,
+                 q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        // the first pass over the ring finds every stage free
+        mbar_wait(empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * Cfg::kTileBytes);
+        const int k0 = (kt_begin + i) * kBlockK;
+#pragma unroll
+        for (int c = 0; c < Cfg::kSlices; ++c) {
+          const uint32_t off = st * Cfg::kTileBytes + c * Cfg::kKSlice;
+          tma_load(sK + off, &tk, full + 8 * st, hk * D + c * kSliceCols, k0,
+                   b);
+          tma_load(sV + off, &tv, full + 8 * st, hk * D + c * kSliceCols, k0,
+                   b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows r_first .. r_first + 63; this thread holds rows `row`
+  // and row + 8 of the accumulators, columns 8j + 2cq + {0, 1}
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int t = threadIdx.x % kWg;
+  const int lane = t % 32;
+  const int r_first = q0 + 64 * wg;
+  const TileRows rows{r_first, r_first + 16 * (t / 32) + lane / 4, lane % 4,
+                      S, window, softcap, scale,
+                      softcap > 0.f ? kLog2e : scale * kLog2e};
+  const uint32_t sQw = sQ + wg * 64 * kSliceRowBytes;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float s[kBlockK / 2];   // the scores, then the f32 weights, of a tile
+  uint32_t p[kBlockK / 4];  // the bf16 weights P.V takes
+  float alpha[2], rs[2];
+
+  // tile 0's scores and weights; then, at tile i, the scores of tile i + 1
+  // and P.V of tile i go to the tensor cores together, and tile i + 1's
+  // softmax runs while P.V does
+  mbar_wait(qbar, 0);
+  mbar_wait(full, 0);
+  wgmma_fence();
+  issue_scores<D>(s, sQw, sK);
+  wgmma_wait<0>();
+  fence_regs(s);
+  tile_weights(s, m, alpha, rs, kt_begin * kBlockK, rows);
+  next_weights<D>(o, l, p, s, alpha, rs);
+  for (int i = 0; i + 1 < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int st1 = (i + 1) % kStages;
+    mbar_wait(full + 8 * st1, ((i + 1) / kStages) & 1);
+    fence_regs(o);
+    fence_regs(p);
+    fence_regs(s);
+    wgmma_fence();
+    issue_scores<D>(s, sQw, sK + st1 * Cfg::kTileBytes);
+    issue_pv<D>(o, p, sV + st * Cfg::kTileBytes);
+    wgmma_wait<1>();  // the scores of tile i + 1
+    fence_regs(s);
+    tile_weights(s, m, alpha, rs, (kt_begin + i + 1) * kBlockK, rows);
+    wgmma_wait<0>();  // o += P.V of tile i
+    fence_regs(o);
+    fence_regs(p);  // read by P.V until here: keep its registers
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+    next_weights<D>(o, l, p, s, alpha, rs);
+  }
+  // P.V of the last tile (no stage need be freed: nothing more is loaded)
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+  issue_pv<D>(o, p, sV + ((n_tiles - 1) % kStages) * Cfg::kTileBytes);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(p);
+
+  // out = o / l, through this consumer's 64 rows of the Q tile (its own
+  // products from them are done) in the swizzled layout of the out map
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  const int g = lane / 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = 16 * (t / 32) + g + 8 * r;  // row in the 64; rr % 8 == g
+      const uint32_t addr = sQw + (j / 8) * Cfg::kQSlice +
+                            rr * kSliceRowBytes + (((j % 8) ^ g) << 4) +
+                            4 * rows.cq;
+      const uint32_t val = pack_bf16(o[4 * j + 2 * r] * inv[r],
+                                     o[4 * j + 2 * r + 1] * inv[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(val)
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(kWg) : "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < Cfg::kSlices; ++c) {
+      tma_store(&to, sQw + c * Cfg::kQSlice, h * D + c * kSliceCols, r_first,
+                b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found once; null if the driver does
+// not have it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, S, cols) bf16 tensor as a 3-D tensor map whose box is 64
+// columns (128 bytes, swizzled) by box_rows rows of one batch row; rows past
+// S read as zeros and are not written.
+bool encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int cols,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * 2 * S};
+  const cuuint32_t box[3] = {kSliceCols, static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(void* out, const void* q, const void* k, const void* v,
+                 int rows, int S, int Hq, int Hkv, int window, float softcap,
+                 cudaStream_t stream) {
+  const uintptr_t addrs =
+      reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(q) |
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  if (addrs % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, to;
+  if (!encode_map(&tq, q, rows, S, Hq * D, kBlockQ) ||
+      !encode_map(&tk, k, rows, S, Hkv * D, kBlockK) ||
+      !encode_map(&tv, v, rows, S, Hkv * D, kBlockK) ||
+      !encode_map(&to, out, rows, S, Hq * D, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = WgmmaCfg<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_fwd_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, rows);
+  flash_attention_fwd_wgmma<D><<<grid, kWgmmaThreads, bytes, stream>>>(
+      tq, tk, tv, to, S, Hq, Hkv, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(void* out, const void* q, const void* k, const void* v, int rows,
            int S, int Hq, int Hkv, int window, float softcap,
@@ -299,7 +959,8 @@ int launch(void* out, const void* q, const void* k, const void* v, int rows,
       flash_attention_fwd_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const float scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const dim3 grid((S + kTile - 1) / kTile, Hq, rows);
   flash_attention_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
@@ -308,20 +969,19 @@ int launch(void* out, const void* q, const void* k, const void* v, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int D, void* out, const void* q, const void* k, const void* v,
-             int rows, int S, int Hq, int Hkv, int window, float softcap,
-             cudaStream_t stream) {
+int dispatch_f32(int D, void* out, const void* q, const void* k,
+                 const void* v, int rows, int S, int Hq, int Hkv, int window,
+                 float softcap, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                           stream);
+      return launch<float, 64>(out, q, k, v, rows, S, Hq, Hkv, window,
+                               softcap, stream);
     case 128:
-      return launch<T, 128>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                            stream);
+      return launch<float, 128>(out, q, k, v, rows, S, Hq, Hkv, window,
+                                softcap, stream);
     case 256:
-      return launch<T, 256>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                            stream);
+      return launch<float, 256>(out, q, k, v, rows, S, Hq, Hkv, window,
+                                softcap, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -331,8 +991,10 @@ int dispatch(int D, void* out, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 for f32 q/k/v/out, 1 for bf16.  Returns cudaErrorInvalidValue for
-// a dtype code, head_dim or shape the kernel does not take.
+// dtype: 0 for f32 q/k/v/out, 1 for bf16.  bf16 at head_dim 64 and 128 runs
+// flash_attention_fwd_wgmma, everything else flash_attention_fwd_kernel.
+// Returns cudaErrorInvalidValue for a dtype code, head_dim or shape the
+// kernels do not take.
 int flash_attention_fwd(void* out, const void* q, const void* k,
                         const void* v, int rows, int S, int Hq, int Hkv,
                         int head_dim, int window, float softcap, int dtype,
@@ -343,12 +1005,20 @@ int flash_attention_fwd(void* out, const void* q, const void* k,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    return dispatch<float>(head_dim, out, q, k, v, rows, S, Hq, Hkv, window,
-                           softcap, st);
+    return dispatch_f32(head_dim, out, q, k, v, rows, S, Hq, Hkv, window,
+                        softcap, st);
   }
-  if (dtype == kBF16) {
-    return dispatch<__nv_bfloat16>(head_dim, out, q, k, v, rows, S, Hq, Hkv,
-                                   window, softcap, st);
+  if (dtype == kBF16 && head_dim == 64) {
+    return launch_wgmma<64>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
+                            st);
+  }
+  if (dtype == kBF16 && head_dim == 128) {
+    return launch_wgmma<128>(out, q, k, v, rows, S, Hq, Hkv, window,
+                             softcap, st);
+  }
+  if (dtype == kBF16 && head_dim == 256) {
+    return launch<__nv_bfloat16, 256>(out, q, k, v, rows, S, Hq, Hkv, window,
+                                      softcap, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,8 +9,13 @@ self-attention on the card runs it once
 once per invocation and forward evaluation.  It is CUDA C++ for ``sm_90a``
 in ``repro_torch/csrc/flash_attention.cu``, built by
 :mod:`repro_torch.kernels._build` at first use; the source note says what
-bounds it (operations, at the f32 peak of the CUDA cores) and what the
-design does about it.
+bounds it (operations, at the bf16 tensor cores' 989 TFLOP/s) and what the
+design does about it.  bf16 at head dims 64 and 128 (:data:`WGMMA_HEAD_DIMS`)
+runs ``flash_attention_fwd_wgmma``: wgmma products fed by TMA through a ring
+of K/V tiles of :data:`WGMMA_BLOCK_K` keys.  f32, and bf16 at head dim 256,
+run ``flash_attention_fwd_kernel`` on the CUDA cores, with key tiles of
+:data:`TILE`.  :func:`key_tile` says which tile a call walks, the
+``block_k`` of the plain model ``ref.attention_tiles_ref``.
 
 The wrapper checks its inputs and raises on anything the kernel does not
 take: a tensor off the card, q/k/v not all f32 or all bf16, shapes other
@@ -18,7 +23,8 @@ than q (B,S,Hq,hd) and k, v (B,S,Hkv,hd) with Hq a multiple of Hkv, hd not
 64, 128 or 256, a non-contiguous layout, a negative window or softcap, and
 ``causal=False``: the port runs every non-causal mask in plain PyTorch
 (``models/attention.py``), so the kernel walks the causal cone only.  It
-allocates the output (q's dtype) with ``torch.empty``, launches on
+allocates the output (q's dtype) with ``torch.empty``, refuses bf16 tensors
+that do not start on 16 bytes (the tensor maps need it), launches on
 PyTorch's current stream, raises if the launch reports a CUDA error (a
 refused shared-memory size included), and counts the launch in
 :data:`LAUNCHES`.  There is no fallback: the plain version in ``ref.py`` is
@@ -39,7 +45,16 @@ LAUNCHES = {"flash_attention_fwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
-TILE = 64                      # query rows per block, key rows per tile
+TILE = 64                      # CUDA-core kernel: query and key rows a tile
+WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma kernel
+WGMMA_BLOCK_K = 128            # its key rows a tile (and query rows a block)
+
+
+def key_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """Key rows a tile of the kernel that runs ``dtype`` at ``head_dim``."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return WGMMA_BLOCK_K
+    return TILE
 
 
 def reset_launches() -> None:
@@ -115,10 +130,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention_fwd: window {window} and softcap "
                          f"{softcap} must be >= 0")
-    if B > 65535 or Hq > 65535 or S > 2 ** 31 - TILE:
+    if B > 65535 or Hq > 65535 or S > 2 ** 31 - WGMMA_BLOCK_K:
         raise ValueError(f"flash_attention_fwd: B = {B} and Hq = {Hq} must "
                          f"be at most 65535 (grid limits), S = {S} below "
                          f"2^31")
+    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: bf16 q, k and v must start "
+                         "on a 16-byte boundary (TMA tensor maps)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -10,8 +10,9 @@
   * ``"ref"``    -- the plain version on any device.
 
 No ``try`` falls back from one to the other.  The reference's ``block_q`` /
-``block_k`` are the TPU kernel's tile sizes; the CUDA kernel's tiles are
-fixed (64 rows), so the port has no such arguments.
+``block_k`` are the TPU kernel's tile sizes; the CUDA kernels' tiles are
+fixed by dtype and head dim (``kernel.key_tile``), so the port has no such
+arguments.
 """
 from __future__ import annotations
 

@@ -15,8 +15,14 @@ bf16 (atol and rtol), for the port's ``attention_ref`` against the JAX
 ``attention_ref`` and against the Pallas ``flash_attention_fwd`` in
 interpret mode.  Every comparison also shows that a zero output and a
 sign-flipped output fail it, and every windowed case that the output
-without the window does.  Gradients within 1e-5.  The CUDA kernel is held
-against ``attention_ref`` on the card by ``chip_smoke.py``.
+without the window does.  Gradients within 1e-5.
+
+``attention_tiles_ref``, the plain model of the CUDA kernels' arithmetic
+(key tiles of ``kernel.key_tile``, f32 online softmax, bf16 weights into
+P·V for bf16 inputs), is held to the same tolerances against the same two,
+at every case and at TILE_CASES, whose windows cross several key tiles.
+The CUDA kernels are held against both plain versions on the card by
+``chip_smoke.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -30,7 +36,8 @@ from repro.kernels.flash_attention.ref import attention_ref as j_ref
 from repro.models import attention as jattn
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                    attention_tiles_ref)
 from repro_torch.models.attention import FlashAttention, flash_attention
 
 # (B, S, Hq, Hkv, hd, window, softcap): tests/test_kernels.py's
@@ -41,6 +48,12 @@ CASES = [
     (2, 128, 4, 2, 64, 32, 0.0),
     (1, 128, 8, 1, 64, 0, 30.0),
     (2, 128, 2, 2, 128, 64, 50.0),
+]
+# windows of 200 and 300 keys across key tiles of 64 and 128, GQA 2:1 and
+# 4:1; rows whose first tiles are wholly masked
+TILE_CASES = [
+    (1, 512, 4, 2, 64, 200, 0.0),
+    (1, 384, 8, 2, 128, 300, 5.0),
 ]
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -95,6 +108,48 @@ def test_attention_ref_matches_jax_ref_and_pallas_kernel(case, dname):
     _holds(got.float(), j_ref(*jins, **kw), tol, *wrong)
     _holds(got.float(), j_fwd(*jins, **kw, block_q=64, block_k=64,
                               interpret=True), tol, *wrong)
+
+
+@pytest.mark.parametrize("case", CASES + TILE_CASES)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_attention_tiles_ref_matches_jax_ref_and_pallas_kernel(case, dname):
+    B, S, Hq, Hkv, hd, window, cap = case
+    jdt, tdt = DTYPES[dname]
+    ins = _inputs(B, S, Hq, Hkv, hd, q_scale=2.0 if dname == "f32" else 1.0)
+    jins = [jnp.asarray(a, jdt) for a in ins]
+    tins = [torch.from_numpy(a).to(tdt) for a in ins]
+    kw = dict(causal=True, window=window, softcap=cap)
+    block_k = K.key_tile(tdt, hd)
+    got = attention_tiles_ref(*tins, **kw, block_k=block_k)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, Hq, hd)
+    wrong = ()
+    if window:
+        wrong = (attention_tiles_ref(*tins, causal=True, softcap=cap,
+                                     block_k=block_k).float(),)
+    tol = TOL[dname]
+    _holds(got.float(), j_ref(*jins, **kw), tol, *wrong)
+    _holds(got.float(), j_fwd(*jins, **kw, block_q=64, block_k=64,
+                              interpret=True), tol, *wrong)
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 128, 512])
+def test_attention_tiles_ref_tile_size_moves_f32_by_rounding_only(block_k):
+    """In f32 the tile walk changes only the order of the f32 rescales: any
+    ``block_k`` (one tile of the whole sequence included) agrees with the
+    materialized softmax of ``attention_ref`` within 2e-6."""
+    B, S, Hq, Hkv, hd, window, cap = TILE_CASES[0]
+    tins = [torch.from_numpy(a) for a in _inputs(B, S, Hq, Hkv, hd)]
+    kw = dict(causal=True, window=window, softcap=cap)
+    got = attention_tiles_ref(*tins, **kw, block_k=block_k)
+    _holds(got, attention_ref(*tins, **kw), 2e-6)
+
+
+def test_key_tile_follows_the_kernel_dispatch():
+    assert K.key_tile(torch.bfloat16, 64) == K.WGMMA_BLOCK_K == 128
+    assert K.key_tile(torch.bfloat16, 128) == 128
+    assert K.key_tile(torch.bfloat16, 256) == K.TILE == 64
+    for hd in K.HEAD_DIMS:
+        assert K.key_tile(torch.float32, hd) == 64
 
 
 def test_attention_ref_without_causal_mask():

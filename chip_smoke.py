@@ -34,10 +34,11 @@ Phases; any failure exits non-zero and prints no result line:
      check, each per-row case that row 0's a_log for every row does, each
      windowed attention case that the output without the window does, and
      each softcap case that the output without the softcap does.
-     ``apply_scaled`` and ``apply_rows`` run through their tree fronts
-     ``ops.apply_delta_tree`` and ``ops.apply_rows_tree``, the main path's
-     entry points, and two ``apply_rows`` calls on the same inputs must give
-     the same bits.  The local steps ``sgd_step``,
+     ``apply_scaled``, ``apply_rows`` and ``apply_rows_q`` run through
+     their tree fronts ``ops.apply_delta_tree``, ``ops.apply_rows_tree`` and
+     ``ops.apply_rows_q_tree`` (each leaf with its own row scales), the main
+     path's entry points; two ``apply_rows`` or ``apply_rows_q`` calls on the
+     same inputs must give the same bits.  The local steps ``sgd_step``,
      ``prox_inner`` and ``prox_outer`` through their tree fronts
      (``ops.<name>_tree``, the entry points that run them, as in the
      reference), ``mode="kernel"`` against ``mode="ref"`` within TOLS: at
@@ -45,16 +46,17 @@ Phases; any failure exits non-zero and prints no result line:
      bf16 other operands) and at the full param trees of mamba2-130m (12
      leaves) and zamba2-1.2b (21 leaves), f32.  Every checked call's
      launches are counted (zeroed just before, read just after) and must
-     be the planned count: one per non-empty leaf, and for the leaf-table
-     kernels (TABLE_KERNELS: ``apply_scaled``, ``sgd_step``, ``prox_outer``
-     and ``apply_rows``) one per dtype pair and chunk of ``max_leaves()``
-     leaves.  All four also run on TABLE_SIZES' awkward trees (empty, 1-10
-     element and 2^20+5 element leaves, views 4 bytes past a 16-byte
-     boundary, a mixed f32/bf16 pair) and on a tree of 3·max_leaves()+1
-     leaves, f32 and bf16, NaN-poisoned outputs: error 0, and for
-     ``apply_rows``, with stacks of TABLE_ROWS rows (0, 1, and across the
-     1024-row weight chunk with zero-weight rows on both sides; rows that
-     are not 16-byte aligned), within TOLS and bit-equal over two calls.
+     be the planned count: every fused-update kernel takes a table of
+     leaves (TABLE_KERNELS), one launch per dtype combination of a leaf's
+     operands and chunk of ``max_leaves()`` leaves.  All six also run on
+     TABLE_SIZES' awkward trees (empty, 1-10 element and 2^20+5 element
+     leaves, views 4 bytes past a 16-byte boundary, a mixed f32/bf16 leaf)
+     and on a tree of 3·max_leaves()+1 leaves, f32 and bf16, NaN-poisoned
+     outputs: error 0, and for ``apply_rows`` and ``apply_rows_q`` (int8
+     stacks, each leaf's own scales), with stacks of TABLE_ROWS rows (0, 1,
+     and 1100 with a run of zero-weight rows; rows that are not 16-byte
+     aligned, int8 rows that start off a word), within TOLS and bit-equal
+     over two calls, M = 0 giving w.
      The CNN rows also time ``torch._foreach_add`` (``torch._foreach_lerp``
      for ``prox_outer``) over the tree
      (``foreach_ms``), per-leaf ``torch.empty_like`` against one flat
@@ -69,8 +71,9 @@ Phases; any failure exits non-zero and prints no result line:
      bf16 ``flash_attention_fwd`` at hd 256), beside it; ``library_ms``
      times one PyTorch call that
      computes the same function (a yardstick the port never calls; none
-     exists for the scan, for attention with a softcap, for ``prox_inner``,
-     for the int8 stack or, except ``torch.add``, for mixed dtypes).
+     exists for the scan, for attention with a softcap, for ``prox_inner``
+     (a step of three operands), for the int8 stack times per-row scales
+     or, except ``torch.add``, for mixed dtypes).
   3. main path -- PersA-FL asynchronous training of the paper CNN on
      label-skewed synthetic MNIST (the fig2 setup of
      ``benchmarks/common.py``: 30 clients, 5 classes each, batch 16, Q = 10,
@@ -93,8 +96,8 @@ Phases; any failure exits non-zero and prints no result line:
      are zeroed just before (e) and read just after.  Checks: no host
      materialization, int8/fp32 ring bytes per user ≥ RING_RATIO,
      personalized accuracy of the two 12-window servers within ACC_GAP,
-     per contributing bank ``apply_rows_q`` launched once per leaf and
-     ``apply_rows`` once, and the first 3 int8 windows on the CPU within the
+     per contributing bank ``apply_rows_q`` (int8) or ``apply_rows`` (fp32)
+     launched once, and the first 3 int8 windows on the CPU within the
      tolerance stated at ``serving_cpu_parity``.
 
   6. mamba2-130m -- (f) ``repro_torch.launch.serve.main`` at full width
@@ -105,8 +108,7 @@ Phases; any failure exits non-zero and prints no result line:
      24 times per forward evaluation of the LM loss in the run (6 per
      cohort call, whatever the cohort size), every user's personalized loss
      below the global loss on their own stream, the window apply one
-     ``apply_rows`` launch (fp32) or one ``apply_rows_q`` launch per leaf
-     (int8).
+     ``apply_rows`` launch (fp32) or one ``apply_rows_q`` launch (int8).
      (g) ``make_prefill_step`` at PREFILL_SHAPES, bf16 activations: wall per
      call, 24 launches per call, and one call under ``torch.profiler``
      (device time in ``ssd_fwd`` against the GEMMs, device busy share).
@@ -199,9 +201,9 @@ TOLS = {"apply_scaled": dict(atol=1e-6, rtol=0.0),
 # bank-sized kernel cases, (n, w dtype, d dtype) and (M, n, w dtype, d
 # dtype), beside the CNN's leaves.  Ragged n leaves a tail past every
 # vector width, and a stack of n = 2^k+5 has rows that are not 16-byte
-# aligned (apply_rows moves them element by element); M = 1500 crosses
-# apply_rows' 1024-row weight chunk, ragged and aligned; w f32 with d bf16
-# is what PersAFLConfig(delta_dtype="bfloat16") hands both kernels.
+# aligned (apply_rows moves them element by element); M = 1500, ragged and
+# aligned, with a run of zero-weight rows; w f32 with d bf16 is what
+# PersAFLConfig(delta_dtype="bfloat16") hands both kernels.
 SCALED_CASES = ((2 ** 26 + 3, "f32", "f32"), (2 ** 26 + 3, "bf16", "bf16"),
                 (2 ** 26 + 3, "f32", "bf16"))
 ROWS_CASES = ((1, 2 ** 20 + 5, "f32", "f32"), (8, 2 ** 20 + 5, "f32", "f32"),
@@ -211,11 +213,14 @@ ROWS_CASES = ((1, 2 ** 20 + 5, "f32", "f32"), (8, 2 ** 20 + 5, "f32", "f32"),
               (8, 2 ** 20 + 5, "bf16", "bf16"),
               (8, 2 ** 20 + 5, "f32", "bf16"))
 # apply_rows_q, (M, n, w dtype), beside the CNN's leaves at M = 32 (a
-# 30-user window in its pow2 bucket): M = 1500 crosses the 1024-row
-# coefficient chunk; bf16 at M = 300 is past the TPU kernel's 128-row chunk,
-# where only the plain version computes the port's function
+# 30-user window in its pow2 bucket): M = 1500 with a run of padding rows;
+# bf16 at M = 300 is past the TPU kernel's 128-row chunk, where only the
+# plain version computes the port's function.  n = 2^20+5 gives int8 rows
+# that start off a word (read as the words around them and shifted into
+# place), n = 2^20 and 2^24 aligned ones
 ROWS_Q_CASES = ((1, 2 ** 20 + 5, "f32"), (8, 2 ** 20 + 5, "f32"),
-                (300, 2 ** 20 + 5, "f32"), (1500, 2 ** 20 + 5, "f32"),
+                (300, 2 ** 20 + 5, "f32"), (300, 2 ** 20, "f32"),
+                (1500, 2 ** 20 + 5, "f32"),
                 (8, 2 ** 24, "f32"), (8, 2 ** 20 + 5, "bf16"),
                 (300, 2 ** 20 + 5, "bf16"))
 # the local steps through their tree fronts: name -> (scalars, scale of g
@@ -231,8 +236,10 @@ LOCAL_STEPS = {"sgd_step": (dict(eta=0.01), 50.0),
 LOCAL_CASES = ((2 ** 26 + 3, "f32", "f32"), (2 ** 26 + 3, "bf16", "bf16"),
                (2 ** 26 + 3, "f32", "bf16"))
 # the kernels that take a whole param tree in one launch, through a table of
-# leaves (apply_rows: of leaves and their stacks)
-TABLE_KERNELS = ("apply_scaled", "sgd_step", "prox_outer", "apply_rows")
+# leaves (apply_rows: of leaves and their stacks; apply_rows_q: of leaves,
+# their int8 stacks and their row scales): all six fused-update kernels
+TABLE_KERNELS = ("apply_scaled", "sgd_step", "prox_outer", "apply_rows",
+                 "prox_inner", "apply_rows_q")
 FIG2 = dict(q_local=10, beta=1.0, alpha=0.01, lam=25.0, inner_steps=10,
             inner_eta=0.02, maml_mode="full")
 # serving phase (e): the quant bench's convergence configuration
@@ -313,17 +320,16 @@ def leaves_close(torch, got, want, tol):
     return err, ok
 
 
-def planned_launches(K, name, firsts, others) -> int:
-    """Launches a front makes for its leaves ``firsts`` and the second
-    operands ``others`` (for ``apply_rows`` the leaves' stacks): the
-    leaf-table kernels (TABLE_KERNELS) one per (first, other) dtype pair and
-    chunk of ``K.max_leaves()`` non-empty leaves, whatever M, the others one
-    per non-empty leaf."""
-    if name not in TABLE_KERNELS:
-        return sum(1 for x in firsts if x.numel())
-    pairs = collections.Counter((a.dtype, b.dtype)
-                                for a, b in zip(firsts, others) if a.numel())
-    return sum(-(-c // K.max_leaves()) for c in pairs.values())
+def planned_launches(K, firsts, *others) -> int:
+    """Launches a leaf-table front (TABLE_KERNELS) makes for its leaves
+    ``firsts`` and the trees of its other operands ``others`` (for
+    ``apply_rows`` the leaves' stacks, for ``apply_rows_q`` their stacks
+    and their scales): one per dtype combination of a leaf's operands and
+    chunk of ``K.max_leaves()`` non-empty leaves, whatever M."""
+    combos = collections.Counter(
+        tuple(x.dtype for x in leaf) for leaf in zip(firsts, *others)
+        if leaf[0].numel())
+    return sum(-(-c // K.max_leaves()) for c in combos.values())
 
 
 def host_us(torch, fns, calls: int = 200, repeats: int = 9):
@@ -388,7 +394,6 @@ def front_host_breakdown(torch, K, ops, ws, ds, s):
 def kernel_phase(torch, cnn_shapes, lm_cases=()):
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ops
-    from repro_torch.kernels.fused_update import ref as R
 
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -412,10 +417,10 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
                             TOLS["bf16" if want[0].dtype == bf16 else name])
 
     def run_case(name, label, ws, ds, extra):
-        """One shape: a list of leaves.  apply_scaled and apply_rows go
-        through their tree fronts, the main path's entry points (one launch
-        per tree); apply_rows_q launches once per leaf."""
+        """One shape: a list of leaves.  Each kernel goes through its tree
+        front, the main path's entry point (one launch per tree)."""
         foreach = None
+        others = [ds]
         if name == "apply_scaled":
             s = extra
             kern = lambda: ops.apply_delta_tree(ws, ds, s, mode="kernel")  # noqa
@@ -430,16 +435,20 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
                          + d.numel() * d.element_size()
                          for w, d in zip(ws, ds))
         elif name == "apply_rows_q":
-            sw, sc = extra
-            kern = lambda: [K.apply_rows_q(w, q, sc, sw)  # noqa: E731
-                            for w, q in zip(ws, ds)]
-            plain = lambda: [R.apply_rows_q_ref(w, q, sc, sw)  # noqa: E731
-                             for w, q in zip(ws, ds)]
+            sw, scs = extra
+            others.append(scs)
+            kern = lambda: ops.apply_rows_q_tree(  # noqa: E731
+                ws, ds, scs, sw, mode="kernel")
+            plain = lambda: ops.apply_rows_q_tree(  # noqa: E731
+                ws, ds, scs, sw, mode="ref")
             # no PyTorch call takes an int8 stack with row scales: addmv
             # over a dequantized f32 stack is another input, not this one
             lib = None
-            nbytes = sum(q.numel() + 2 * w.numel() * w.element_size()
-                         + 8 * sw.numel() for w, q in zip(ws, ds))
+            # each leaf's stack and scales, w read and out written; the
+            # weights are read once for the whole tree
+            nbytes = 4 * sw.numel() + sum(
+                q.numel() + 2 * w.numel() * w.element_size() + 4 * sc.numel()
+                for w, q, sc in zip(ws, ds, scs))
         else:
             sw = extra
             swl = sw.to(ws[0].dtype)
@@ -463,7 +472,7 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
         torch.cuda.empty_cache()
         poison = [torch.full_like(w, float("nan")) for w in ws]
         del poison
-        planned = planned_launches(K, name, ws, ds)
+        planned = planned_launches(K, ws, *others)
         K.reset_launches()
         got = kern()
         launched = K.LAUNCHES[name]
@@ -483,7 +492,7 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
               f"{name} {label}: the tolerance cannot tell a no-op "
               f"(err {noop_err}) or a sign flip (err {flip_err}) from the "
               f"plain version")
-        if name == "apply_rows":
+        if name in ("apply_rows", "apply_rows_q"):
             # the rows are summed in a fixed order: a second call gives the
             # same bits
             again = kern()
@@ -551,25 +560,28 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
         d = randn(m, n, dtype=dtypes[dd])
         sw = row_weights(m)
         if m > 1024:
-            # past the kernel's 1024-row chunk of staged weights: zero rows
-            # on both sides of the boundary
+            # a run of zero-weight rows
             sw[1018:1030] = 0.0
         run_case("apply_rows", f"M={m} n={n} {dname(dw, dd)}", [w], [d], sw)
         del w, d
 
     def q_inputs(m, shapes):
-        # int8 codes over the full range, scales of order 1/127 and weights
-        # rand/sqrt(M), so the update is of the order of w; every third row
-        # is a padding row (weight 0, scale 0) and must stay inert
+        # int8 codes over the full range, each leaf's own scales of order
+        # 1/127 (a QuantStack's) and weights rand/sqrt(M), so the update is
+        # of the order of w; every third row is a padding row (weight 0,
+        # scale 0) and must stay inert
         qs = [torch.randint(-127, 128, (m, *sh), device=dev, generator=g,
                             dtype=torch.int8) for sh in shapes]
-        sc = (0.5 + torch.rand(m, device=dev, generator=g)) / 127.0
+        scs = [(0.5 + torch.rand(m, device=dev, generator=g)) / 127.0
+               for _ in shapes]
         sw = row_weights(m)
-        sc[1::3] = 0.0
+        for sc in scs:
+            sc[1::3] = 0.0
         if m > 1024:
             sw[1018:1030] = 0.0
-            sc[1018:1030] = 0.0
-        return qs, (sw, sc)
+            for sc in scs:
+                sc[1018:1030] = 0.0
+        return qs, (sw, scs)
 
     qs, extra = q_inputs(32, cnn_shapes)
     ws = [randn(*sh, scale=0.5) for sh in cnn_shapes]
@@ -582,8 +594,7 @@ def kernel_phase(torch, cnn_shapes, lm_cases=()):
         del w, qs
     for lm_label, lm_shapes in lm_cases:
         # the window apply of phases (f) and (i): an LM's personal leaves
-        # at M = 4 (4 users, one pow2 bucket), apply_rows one launch per
-        # tree and apply_rows_q one per leaf
+        # at M = 4 (4 users, one pow2 bucket), one launch per tree
         ws = [randn(*sh, scale=0.5) for sh in lm_shapes]
         stacks = [randn(4, *sh) for sh in lm_shapes]
         run_case("apply_rows", f"{lm_label} M=4 f32", ws, stacks,
@@ -664,7 +675,7 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
         torch.cuda.empty_cache()
         poison = [torch.full_like(x, float("nan")) for x in trees[0]]
         del poison
-        planned = planned_launches(K, name, trees[0], trees[1])
+        planned = planned_launches(K, *trees)
         K.reset_launches()
         got = front(*trees, **kw, mode="kernel")
         n = K.LAUNCHES[name]
@@ -726,12 +737,15 @@ def local_step_phase(torch, cnn_shapes, lm_cases):
 # than, exactly and more than a thread's 8 elements, the MNIST CNN's last
 # bias, whose f32 rows are 40 bytes, and 512 tiles of 2048 and a ragged
 # tail), then two leaves of VIEW_N elements (3 tiles and a tail) with w,
-# then the second operand, a view 4 bytes into its buffer (no 16-byte
-# vectors there), and one leaf of MIXED_N elements whose second operand has
-# the other dtype: two launches; and a tree of 3 * max_leaves + 1 leaves,
-# four.  apply_rows takes them with stacks of TABLE_ROWS rows (the long
-# tree with LONG_ROWS): none, one, and across the 1024-row weight chunk
-# with zero-weight rows on both sides of it
+# then the other operands, a view 4 bytes into its buffer (no 16-byte
+# vectors there), and one leaf of MIXED_N elements whose other operands
+# have the other dtype: two launches; and a tree of 3 * max_leaves + 1
+# leaves, four.  apply_rows takes them with stacks of TABLE_ROWS rows (the
+# long tree with LONG_ROWS): none, one, and 1100 with a run of zero-weight
+# rows (1018-1029); apply_rows_q with int8 stacks
+# of those rows (the second VIEW_N leaf's a view 3 bytes in, so that no row
+# starts on a word) and each leaf's own scales (the first VIEW_N leaf's a
+# view 4 bytes in), w of one dtype: one launch, and four on the long tree
 TABLE_SIZES = (0, 1, 7, 8, 9, 10, 2 ** 20 + 5)
 VIEW_N, MIXED_N = 3 * 2048 + 5, 2 ** 16 + 3
 TABLE_ROWS, LONG_ROWS = (0, 1, 1100), 8
@@ -742,9 +756,9 @@ def table_tree_phase(torch):
     against ``mode="ref"``) on the trees of TABLE_SIZES and on a tree of
     ``3 * max_leaves() + 1`` leaves, f32 and bf16, outputs NaN-poisoned
     first: the planned launches, error 0 for the elementwise kernels and
-    ``apply_rows`` within TOLS with two calls bit-equal, and a no-op and a
-    sign flip rejected (for M = 0, ``apply_rows`` must give w).  Returns
-    rows per kernel."""
+    ``apply_rows``/``apply_rows_q`` within TOLS with two calls bit-equal,
+    and a no-op and a sign flip rejected (for M = 0, the stacked applies
+    must give w).  Returns rows per kernel."""
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ops
 
@@ -752,15 +766,19 @@ def table_tree_phase(torch):
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     eta = LOCAL_STEPS["sgd_step"][0]["eta"]
     po = LOCAL_STEPS["prox_outer"][0]
-    # front(ws, bs, mode), scale of the second operand (update of the order
-    # of w)
-    fronts = {"apply_scaled": (lambda ws, bs, mode: ops.apply_delta_tree(
-                  ws, bs, 0.7, mode=mode), 0.5),
-              "sgd_step": (lambda ws, bs, mode: ops.sgd_step_tree(
-                  ws, bs, eta, mode=mode),
-                  0.5 * LOCAL_STEPS["sgd_step"][1]),
-              "prox_outer": (lambda ws, bs, mode: ops.prox_outer_tree(
-                  ws, bs, po["eta"], po["lam"], mode=mode), 0.5)}
+    pi = LOCAL_STEPS["prox_inner"][0]
+    # front(ws, other trees, mode), and the scale of each other operand (an
+    # update of the order of w)
+    fronts = {"apply_scaled": (lambda ws, o, mode: ops.apply_delta_tree(
+                  ws, o[0], 0.7, mode=mode), (0.5,)),
+              "sgd_step": (lambda ws, o, mode: ops.sgd_step_tree(
+                  ws, o[0], eta, mode=mode),
+                  (0.5 * LOCAL_STEPS["sgd_step"][1],)),
+              "prox_outer": (lambda ws, o, mode: ops.prox_outer_tree(
+                  ws, o[0], po["eta"], po["lam"], mode=mode), (0.5,)),
+              "prox_inner": (lambda ws, o, mode: ops.prox_inner_tree(
+                  ws, o[0], o[1], pi["eta_in"], pi["lam"], mode=mode),
+                  (0.5 * LOCAL_STEPS["prox_inner"][1], 0.5))}
     rows = {name: [] for name in TABLE_KERNELS}
 
     def randn(n, scale, dtype, offset_bytes=0):
@@ -771,65 +789,105 @@ def table_tree_phase(torch):
         return x[off:]
 
     def row_weights(m):
-        # zero-weight rows: every third, and across the 1024-row chunk
+        # zero-weight rows: every third, and a run of them
         sw = (0.5 + torch.rand(m, device="cuda", generator=g)) / \
             max(m, 1) ** 0.5
         sw[1::3] = 0.0
         sw[1018:1030] = 0.0
         return sw
 
-    def awkward(first, other, b_scale, m=None):
-        """The awkward tree; with ``m`` the second operands are [m, n]
-        stacks."""
-        def second(n, dtype, offset_bytes=0):
-            if m is None:
-                return randn(n, b_scale, dtype, offset_bytes)
-            return randn(m * n, b_scale, dtype, offset_bytes).view(m, n)
-        ws = [randn(n, 0.5, first) for n in TABLE_SIZES]
-        bs = [second(n, first) for n in TABLE_SIZES]
-        ws += [randn(VIEW_N, 0.5, first, 4), randn(VIEW_N, 0.5, first)]
-        bs += [second(VIEW_N, first), second(VIEW_N, first, 4)]
-        # (an M = 0 stack holds nothing to misalign)
-        check(ws[-2].data_ptr() % 16 == 4
-              and (bs[-1].data_ptr() % 16 == 4 or not bs[-1].numel()),
-              "table trees: the views do not sit 4 bytes past 16")
-        ws.append(randn(MIXED_N, 0.5, first))
-        bs.append(second(MIXED_N, other))
-        return ws, bs
+    def codes(m, n, offset_bytes=0):
+        """An int8 [m, n] stack over the full range; with ``offset_bytes``
+        a view that far into a buffer."""
+        x = torch.randint(-127, 128, (m * n + offset_bytes,), device="cuda",
+                          generator=g, dtype=torch.int8)
+        return x[offset_bytes:].view(m, n)
 
-    def long_tree(first, b_scale, m=None):
+    def row_scales(m, offset_bytes=0):
+        """A leaf's [m] scales of order 1/127, zero where the weights'
+        padding rows are; with ``offset_bytes`` a view into a buffer."""
+        sc = randn(m, 1.0, torch.float32, offset_bytes).abs_().add_(0.5) \
+            .div_(127.0)
+        sc[1::3] = 0.0
+        sc[1018:1030] = 0.0
+        return sc
+
+    def awkward(first, other, scales, m=None):
+        """The awkward tree and its other operands, one tree per scale;
+        with ``m`` the one other operand is the [m, n] stacks."""
+        def operand(n, dtype, scale, offset_bytes=0):
+            if m is None:
+                return randn(n, scale, dtype, offset_bytes)
+            return randn(m * n, scale, dtype, offset_bytes).view(m, n)
+        ws = [randn(n, 0.5, first) for n in TABLE_SIZES]
+        ws += [randn(VIEW_N, 0.5, first, 4), randn(VIEW_N, 0.5, first),
+               randn(MIXED_N, 0.5, first)]
+        others = []
+        for scale in scales:
+            bs = [operand(n, first, scale) for n in TABLE_SIZES]
+            bs += [operand(VIEW_N, first, scale),
+                   operand(VIEW_N, first, scale, 4),
+                   operand(MIXED_N, other, scale)]
+            # (an M = 0 stack holds nothing to misalign)
+            check(ws[-3].data_ptr() % 16 == 4
+                  and (bs[-2].data_ptr() % 16 == 4 or not bs[-2].numel()),
+                  "table trees: the views do not sit 4 bytes past 16")
+            others.append(bs)
+        return ws, others
+
+    def q_awkward(first, m):
+        """The awkward tree for apply_rows_q: w, int8 stacks, scales."""
+        sizes = TABLE_SIZES + (VIEW_N, VIEW_N, MIXED_N)
+        view = len(TABLE_SIZES)
+        ws = [randn(n, 0.5, first, 4 if i == view else 0)
+              for i, n in enumerate(sizes)]
+        qs = [codes(m, n, 3 if i == view + 1 else 0)
+              for i, n in enumerate(sizes)]
+        scs = [row_scales(m, 4 if i == view else 0)
+               for i in range(len(sizes))]
+        check(ws[view].data_ptr() % 16 == 4
+              and (qs[view + 1].data_ptr() % 16 == 3 or not m),
+              "table trees: the views do not sit 4 and 3 bytes past 16")
+        return ws, [qs, scs]
+
+    def long_tree(first, scales, m=None):
         sizes = [1 + (i * 997) % 5000 for i in range(3 * K.max_leaves() + 1)]
         lead = () if m is None else (m,)
         return ([randn(n, 0.5, first) for n in sizes],
-                [randn(m * n if m else n, b_scale, first).view(*lead, n)
-                 for n in sizes])
+                [[randn(m * n if m else n, scale, first).view(*lead, n)
+                  for n in sizes] for scale in scales])
 
-    def run(name, label, front, ws, bs, tol):
-        want = front(ws, bs, "ref")
+    def q_long_tree(first, m):
+        ws, _ = long_tree(first, ())
+        return ws, [[codes(m, w.numel()) for w in ws],
+                    [row_scales(m) for _ in ws]]
+
+    def run(name, label, front, ws, others, tol):
+        want = front(ws, others, "ref")
         torch.cuda.empty_cache()
         poison = [torch.full_like(w, float("nan")) for w in ws]
         del poison
-        planned = planned_launches(K, name, ws, bs)
+        planned = planned_launches(K, ws, *others)
         K.reset_launches()
-        got = front(ws, bs, "kernel")
+        got = front(ws, others, "kernel")
         launched = K.LAUNCHES[name]
         torch.cuda.synchronize()
         check(launched == planned, f"{name} {label}: {launched} "
                                    f"launches, {planned} planned")
         err, ok = leaves_close(torch, got, want, tol)
-        exact = name != "apply_rows"
-        check(ok and (err == 0.0 or not exact),
+        stacked = name in ("apply_rows", "apply_rows_q")
+        check(ok and (err == 0.0 or stacked),
               f"{name} {label}: kernel differs from its plain version (max "
               f"abs err {err})")
         row = {"shape": label, "max_abs_err": err,
                "launches_per_call": launched, "leaves": len(ws)}
-        if name == "apply_rows":
-            again = front(ws, bs, "kernel")
+        if stacked:
+            again = front(ws, others, "kernel")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {label}: two calls on the same inputs differ")
             row["two_calls_bit_equal"] = True
             del again
-        if name == "apply_rows" and bs[0].shape[0] == 0:
+        if stacked and others[0][0].shape[0] == 0:
             # no rows: the output is w, bit for bit
             check(all(torch.equal(a, w) for a, w in zip(got, ws)),
                   f"{name} {label}: M = 0 does not give w")
@@ -850,23 +908,35 @@ def table_tree_phase(torch):
         other = dtypes["bf16" if dn == "f32" else "f32"]
         tol = TOLS["bf16" if first == torch.bfloat16 else "apply_scaled"]
         awkward_label = (f"table tree {dn} (sizes {list(TABLE_SIZES)}, 2 "
-                         f"views 4 bytes in, 1 mixed pair)")
+                         f"views 4 bytes in, 1 mixed leaf)")
         long_label = f"table tree {dn} {3 * K.max_leaves() + 1} leaves"
-        for name, (front, b_scale) in fronts.items():
-            run(name, awkward_label, front, *awkward(first, other, b_scale),
+        for name, (front, scales) in fronts.items():
+            run(name, awkward_label, front, *awkward(first, other, scales),
                 tol)
-            run(name, long_label, front, *long_tree(first, b_scale), tol)
-        rtol = TOLS["bf16" if first == torch.bfloat16 else "apply_rows"]
-        for m in TABLE_ROWS:
-            sw = row_weights(m)
-            run("apply_rows", f"{awkward_label} M={m}",
-                lambda ws, bs, mode: ops.apply_rows_tree(ws, bs, sw,
-                                                         mode=mode),
-                *awkward(first, other, 1.0, m), rtol)
-        sw = row_weights(LONG_ROWS)
-        run("apply_rows", f"{long_label} M={LONG_ROWS}",
-            lambda ws, bs, mode: ops.apply_rows_tree(ws, bs, sw, mode=mode),
-            *long_tree(first, 1.0, LONG_ROWS), rtol)
+            run(name, long_label, front, *long_tree(first, scales), tol)
+        # (label, M, whether the long tree); apply_rows_q's awkward tree has
+        # no mixed leaf (its stacks are int8, its w of one dtype)
+        q_label = (f"table tree {dn} (sizes {list(TABLE_SIZES)}, w and "
+                   f"scales views 4 bytes in, a stack view 3 bytes in)")
+        for name in ("apply_rows", "apply_rows_q"):
+            rtol = TOLS["bf16" if first == torch.bfloat16 else name]
+            label0 = awkward_label if name == "apply_rows" else q_label
+            stacks = [(f"{label0} M={m}", m, False) for m in TABLE_ROWS]
+            stacks.append((f"{long_label} M={LONG_ROWS}", LONG_ROWS, True))
+            for label, m, long in stacks:
+                sw = row_weights(m)
+                if name == "apply_rows":
+                    front = lambda ws, o, mode: ops.apply_rows_tree(  # noqa
+                        ws, o[0], sw, mode=mode)
+                    trees = long_tree(first, (1.0,), m) if long \
+                        else awkward(first, other, (1.0,), m)
+                else:
+                    front = lambda ws, o, mode: ops.apply_rows_q_tree(  # noqa
+                        ws, o[0], o[1], sw, mode=mode)
+                    trees = q_long_tree(first, m) if long \
+                        else q_awkward(first, m)
+                run(name, label, front, *trees, rtol)
+                del trees
         torch.cuda.empty_cache()
     return rows
 
@@ -1400,7 +1470,7 @@ def stacked_applies(K):
     def counted(state, stack, *args, **kwargs):
         seen["applies"] += 1
         seen["planned"] += planned_launches(
-            K, "apply_rows", tree_leaves(state.params), tree_leaves(stack))
+            K, tree_leaves(state.params), tree_leaves(stack))
         return real(state, stack, *args, **kwargs)
     api.apply_buffered_rows = counted
     try:
@@ -1723,12 +1793,11 @@ def serving_phase(torch, setup):
             after=keep_third if name == "int8" else None)
         wall = time.perf_counter() - t0
         st = srv.stats
-        # a bank's apply: apply_rows_q one launch per leaf, apply_rows one
-        # per tree (the CNN's leaves are one dtype pair and one table)
-        if kw["delta_dtype"] == "int8":
-            expect["apply_rows_q"] += leaves * sum(banks)
-        else:
-            expect["apply_rows"] += -(-leaves // K.max_leaves()) * sum(banks)
+        # a bank's apply: apply_rows_q or apply_rows one launch per tree
+        # (the CNN's leaves are one dtype combination and one table)
+        kern = "apply_rows_q" if kw["delta_dtype"] == "int8" \
+            else "apply_rows"
+        expect[kern] += -(-leaves // K.max_leaves()) * sum(banks)
         acc = float(ev(srv.params)) if windows == SERVE_WINDOWS else None
         out[name] = dict(wall_per_window_s=wall / windows,
                          requests_per_s=submitted / wall,
@@ -1763,7 +1832,7 @@ def serving_phase(torch, setup):
     for k in launches:
         check(launches[k] == expect[k] > 0,
               f"serving: {k} launched {launches[k]} times, expected "
-              f"{expect[k]} (apply_rows_q one per leaf, apply_rows one per "
+              f"{expect[k]} (apply_rows_q and apply_rows one per "
               f"tree, per contributing bank)")
     serving_cpu_parity(torch, setup, pcfg, batches, snap3)
     # where a window's time goes: 3 windows of a fresh int8 server
@@ -1946,13 +2015,12 @@ def lm_serving_phase(torch, arch, label, subset=None):
         evals = (LM_INNER_STEPS + 1) * st["cohort_calls"]
         expect = {"ssd_fwd": cfg.n_layers * evals,
                   "flash_attention_fwd": ssm_lm.n_shared_slots(cfg) * evals}
-        # the window apply of the one bank: apply_rows_q one launch per
-        # personal leaf, apply_rows one per tree of them (one dtype pair)
+        # the window apply of the one bank: apply_rows_q or apply_rows one
+        # launch per tree of the personal leaves (one dtype combination)
         n_personal = len(tree_leaves(spec.extract(run.params))) \
             if spec is not None else len(leaves)
         kern = "apply_rows_q" if codec == "int8" else "apply_rows"
-        want_launches = n_personal if codec == "int8" \
-            else -(-n_personal // K.max_leaves())
+        want_launches = -(-n_personal // K.max_leaves())
         K.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2274,8 +2342,9 @@ def run_phases(torch):
             # the tree fronts are the local steps' main path
             n = local_launches[name]
         else:
-            # apply_rows_q runs on the serving path (e) only; the others'
-            # counts are those of training runs (a)-(d)
+            # apply_rows_q runs on the serving paths (e), (f) and (i) only,
+            # (e)'s count here; the others' counts are those of training
+            # runs (a)-(d)
             n = launches.get(name, serve_launches.get(name))
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -6,30 +6,32 @@
 //       apply_scaled (w - s * d, every immediate apply)
 //   fu_prox_outer_leaves: out = w - (eta*lam) * (w - t) over such a table
 //                                                     (Option C outer step)
+//   fu_prox_inner_leaves: out = t - eta_in * (g + lam * (t - w)) over such a
+//       table of three inputs                         (Option C inner step)
 //   fu_apply_rows_leaves: out = w - sum_i s_i * d_i over a table of leaves and
 //       their [M, n] stacks, in ONE launch (every buffered / sync flush, every
 //       fp32-banked window)
-//   fu_prox_inner:   out = t - eta_in * (g + lam * (t - w))
-//                                                     (Option C inner step)
-//   fu_apply_rows_q: out = w - sum_i (s_i * scale_i) * q_i   (every int8-banked
-//                                                 serving window; q int8)
+//   fu_apply_rows_q_leaves: out = w - sum_i (s_i * scale_i) * q_i over a table
+//       of leaves, their int8 [M, n] stacks and their [M] row scales, in ONE
+//       launch (every int8-banked serving window)
 //
 // All of them read their inputs once and write the output once, do the
 // arithmetic in f32 and keep the storage type of their first operand (f32 or
-// bf16; every other float operand may be either).  They are memory-bound
-// elementwise passes: the bound on an H100 SXM is the bytes moved over
-// 3.35 TB/s, and there is nothing to tile for -- the TPU kernels' 64K-element
-// padding, 8192-column blocks and SMEM scalar are artefacts of that machine
-// and are not carried over.  No kernel allocates, synchronises or pads: the
-// ragged tail is masked by the loop bound, and the launch goes on the stream
-// the caller passes (PyTorch's current stream).  Each entry point returns the
-// value of cudaGetLastError() after the launch, which the Python wrapper turns
-// into an exception.
+// bf16; every other float operand may be either, a stack of apply_rows_q is
+// int8).  They are memory-bound passes: the bound on an H100 SXM is the bytes
+// moved over 3.35 TB/s, and there is nothing to tile for -- the TPU kernels'
+// 64K-element padding, 8192-column blocks and SMEM scalar are artefacts of
+// that machine and are not carried over.  No kernel allocates, synchronises
+// or pads: the ragged tail is masked, and the launch goes on the stream the
+// caller passes (PyTorch's current stream).  Each entry point returns the
+// value of cudaGetLastError() after its launch, which the Python wrapper
+// turns into an exception.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -40,14 +42,15 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
 constexpr int kMaxLeaves = 48;
-// the stacked applies stage the row weights in shared memory this many at a
-// time
-constexpr int kWeightChunk = 1024;
-// apply_rows: a thread issues the loads of this many rows before their FMAs;
-// a block's threads form at most 2^kMaxGroupsLog2 row groups, each of at
-// least kMinGroupRows rows; the host takes the fewest groups that give the
-// grid kFillBlocksPerSM blocks per SM
+// the stacked applies: a thread issues the loads of kUnroll rows (in
+// apply_rows_q's 16-column layout kUnrollQ) before their FMAs; a block's
+// threads form at most 2^kMaxGroupsLog2 row groups, each of at least
+// kMinGroupRows rows; the host takes the fewest groups that give the grid
+// kFillBlocksPerSM blocks per SM; apply_rows_q's kernel is held to
+// kRowsQBlocksPerSM resident blocks per SM (80 registers a thread)
 constexpr int kUnroll = 8;
+constexpr int kUnrollQ = 4;
+constexpr int kRowsQBlocksPerSM = 3;
 constexpr int kMaxGroupsLog2 = 3;
 constexpr int kMinGroupRows = kUnroll;
 constexpr int kFillBlocksPerSM = 32;
@@ -71,19 +74,24 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
 }
 
 // ---------------------------------------------------------------------------
-// One launch over a table of leaves: sgd_step, apply_scaled and prox_outer
+// One launch over a table of leaves: sgd_step, apply_scaled, prox_outer and
+// prox_inner
 // ---------------------------------------------------------------------------
 //
 // Replace src/repro/kernels/fused_update/kernel.py:78 sgd_step (body
 // _sgd_kernel at :39, run by _run_flat at :58), :229 apply_scaled (body
-// _apply_scaled_kernel at :95) and :90 prox_outer (body _prox_outer_kernel at
-// :52, run by _run_flat).  The first two compute out = a - c * b, a the
-// params w and b the gradient g or the delta d; prox_outer computes
-// out = a - c * (a - b), a = w, b = theta and c = eta*lam.  Bound: 2n
-// elements read and n written over 3.35 TB/s -- at n = 2^26+3 0.2404 ms in
-// f32 and 0.1202 ms in bf16 -- and nothing else; at a param tree of small
-// leaves (the MNIST CNN's 8, 52K elements) the bound is 0.2 us and the time
-// is the host's.  The reference
+// _apply_scaled_kernel at :95), :90 prox_outer (body _prox_outer_kernel at
+// :52, run by _run_flat) and :83 prox_inner (body _prox_inner_kernel at :45,
+// run by _run_flat).  The first two compute out = a - c * b, a the params w
+// and b the gradient g or the delta d; prox_outer computes
+// out = a - c * (a - b), a = w, b = theta and c = eta*lam; prox_inner
+// out = t - eta_in * (g + lam * (t - w)) of three inputs.  Bound: the inputs
+// read once and the output written once over 3.35 TB/s -- at n = 2^26+3
+// 0.2404 ms in f32 and 0.1202 ms in bf16 for two inputs, 0.3205 ms in f32
+// for three -- and nothing else; at a param tree of small leaves (the MNIST
+// CNN's 8, 52K elements) the bound is 0.2 us and the time is the host's.  The
+// TPU's 64K-element BLOCK padding (kernel.py:36, :58-75) is a VMEM tiling and
+// is not carried over.  The reference
 // jits each tree front into one program; a launch per leaf costs a ctypes call
 // and a launch each.  Design:
 //   * one launch per param tree: the leaves travel by value, as a __grid_
@@ -92,7 +100,8 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
 //     vectors), under the 4 KB parameter limit.  __grid_constant__ lets a
 //     thread index the table with a run-time leaf number without copying the
 //     struct into local memory.  A longer tree, or one whose leaves mix dtype
-//     pairs, takes one launch per chunk and pair (the wrapper plans them);
+//     combinations, takes one launch per chunk and combination (the wrapper
+//     plans them);
 //   * the leaves are cut into tiles of kTile elements, none straddling two
 //     leaves, one block per tile; a block finds its tile's leaf by a scan of
 //     the table's tile prefix, the same for every thread of the block.  (A
@@ -108,10 +117,11 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i,
 //     element.  A leaf that is not aligned (a view at an odd offset) takes a
 //     scalar loop over its tiles, neighbouring threads on neighbouring
 //     addresses;
-//   * every operation is rounded on its own (__fmul_rn, __fsub_rn; nvcc would
-//     otherwise contract them into one FMA, rounded once), in the plain
-//     version's order, so the result is bit-equal to the plain version.  The
-//     host rounds the scalar to f32 as the plain version does.
+//   * every operation is rounded on its own (__fmul_rn, __fsub_rn,
+//     __fadd_rn; nvcc would otherwise contract them into one FMA, rounded
+//     once), in the plain version's order, so the result is bit-equal to the
+//     plain version.  The host rounds each scalar to f32 as the plain version
+//     does.
 // The table and the tile take any number of inputs (a parameter pack); each
 // step is an operator of its own.
 
@@ -129,8 +139,9 @@ struct LeafTable {
 };
 static_assert(sizeof(LeafTable<2>) == 40 * kMaxLeaves + 8,
               "a two-input leaf is 40 bytes");
-static_assert(sizeof(LeafTable<3>) + 16 <= 4096,
-              "the table and the scalars fit the 4 KB parameter limit");
+static_assert(sizeof(LeafTable<3>) + 24 <= 4096,
+              "the table and the arguments beside it fit the 4 KB parameter "
+              "limit");
 
 // out = a - c * b, the multiply and the subtraction rounded separately
 struct SubScaled {
@@ -149,15 +160,30 @@ struct ProxOuter {
   }
 };
 
-// kC elements of T that move as one vector load or store
+// out = t - eta_in * (g + lam * (t - w)), each operation rounded on its own,
+// in prox_inner_ref's order
+struct ProxInner {
+  float eta_in, lam;
+  __device__ __forceinline__ float operator()(float t, float g,
+                                              float w) const {
+    return __fsub_rn(
+        t, __fmul_rn(eta_in, __fadd_rn(g, __fmul_rn(lam, __fsub_rn(t, w)))));
+  }
+};
+
+// kC elements of T that move as one vector load or store, or as several of
+// 16 bytes where they are wider
 template <typename T, int kC>
-struct alignas(sizeof(T) * kC) Chunk {
+struct alignas(sizeof(T) * kC < 16 ? sizeof(T) * kC : 16) Chunk {
   T v[kC];
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void from_f32(float& x, float v) { x = v; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16& x, float v) {
@@ -186,9 +212,10 @@ __device__ __forceinline__ void store_chunk(void* p, int64_t i,
 template <typename T, typename... R>
 __host__ __device__ constexpr int widest() {
   if constexpr (sizeof...(R) == 0) {
-    return sizeof(T);
+    return static_cast<int>(sizeof(T));
   } else {
-    return sizeof(T) > widest<R...>() ? sizeof(T) : widest<R...>();
+    constexpr int kT = static_cast<int>(sizeof(T));
+    return kT > widest<R...>() ? kT : widest<R...>();
   }
 }
 
@@ -264,159 +291,251 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The Option C inner step replaces src/repro/kernels/fused_update/kernel.py:83
-// prox_inner (body _prox_inner_kernel at :45, run by _run_flat at :58).
-// Bound: 4n elements (3 read, 1 written) over 3.35 TB/s: at n = 2^26+3 in f32
-// 0.3205 ms.  Design: one launch per leaf, a grid-stride loop, one element
-// per thread per step, neighbouring threads on neighbouring addresses.  The
-// TPU's 64K-element BLOCK padding (kernel.py:36, :58-75) is a VMEM tiling and
-// is not carried over; the loop bound masks the ragged tail.  Every operation
-// is rounded on its own (__fmul_rn, __fsub_rn, __fadd_rn), in the plain
-// version's order, so the kernel is bit-equal to its plain version.  The host
-// rounds each scalar to f32 as the plain version does.
-template <typename TT, typename TG, typename TW>
-__global__ void __launch_bounds__(kThreads)
-    prox_inner_kernel(TT* __restrict__ out, const TT* __restrict__ theta,
-                      const TG* __restrict__ g, const TW* __restrict__ w,
-                      float eta_in, float lam, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float t = load_f32(theta, i);
-    const float pull = __fmul_rn(lam, __fsub_rn(t, load_f32(w, i)));
-    store_f32(out, i,
-              __fsub_rn(t, __fmul_rn(eta_in, __fadd_rn(load_f32(g, i), pull))));
-  }
-}
-
 // ---------------------------------------------------------------------------
-// One launch over a stacked table of leaves: apply_rows
+// One launch over a stacked table of leaves: apply_rows and apply_rows_q
 // ---------------------------------------------------------------------------
 //
 // Replaces src/repro/kernels/fused_update/kernel.py:129 apply_rows (body
 // _apply_rows_kernel at :114): out = w - sum_i s_i * d_i for every leaf of a
 // param tree, d the leaf's [M, n] bank stack and s the [M] f32 row weights
-// shared by all leaves.  Bound: (M+1)·n elements read and n written over
-// 3.35 TB/s (at M = 4 over mamba2-130m's leaves 1.201 ms); at the MNIST
-// CNN's 8 leaves it is under a microsecond and the time is the host's.
-// Design:
+// shared by all leaves; and kernel.py:186 apply_rows_q (body
+// _apply_rows_q_kernel at :168), the same sum over an int8 stack q with the
+// row coefficient s_i * scale_i, scale the leaf's own [M] f32 row scales.
+// Bound: the stacks read once (M·n elements; for apply_rows_q M·n bytes),
+// w read and out written, over 3.35 TB/s (at M = 4 over mamba2-130m's leaves
+// 1.201 ms for an f32 stack, 0.6004 ms for an int8 one); at the MNIST CNN's
+// 8 leaves it is under a microsecond and the time is the host's.  Design:
 //   * one launch per param tree, as leaves_kernel: a __grid_constant__
-//     LeafTable<2> with in[0] = w and in[1] = the stack, one block per tile
-//     of columns; M and the device pointer of the weights pass beside it;
+//     LeafTable with in[0] = w, in[1] = the stack and, for apply_rows_q,
+//     in[2] = the leaf's scales; one block per tile of columns, no tile
+//     straddling two leaves; M and the device pointer of the weights pass
+//     beside it;
 //   * the block's threads form `groups` row groups (1, 2, 4 or 8, kThreads /
 //     groups threads each), every group over all the tile's columns.  Group
 //     g sums the rows g, g + groups, g + 2·groups, ... in order into f32
-//     accumulators, issuing kUnroll rows' loads before their FMAs so that
-//     many loads are in flight per thread; then the groups' sums are added
-//     in shared memory in group order.  The order of the sum is fixed by M
-//     and the number of groups: no atomics, no second pass, and two calls on
-//     the same inputs are bit-equal.  It differs from the plain version's,
-//     so the f32 result agrees within a few ulps;
+//     accumulators, issuing a few rows' loads, and their row weights' (and
+//     scales'), before their FMAs so that many loads are in flight per
+//     thread; then the groups' sums are added in shared memory in group
+//     order.  The order of the sum is fixed by M and the number of groups:
+//     no atomics, no second pass, and two calls on the same inputs are
+//     bit-equal.  It differs from the plain version's, so the f32 result
+//     agrees within a few ulps.  A row's coefficient is loaded with the row
+//     (every thread of a warp reads the same word): staging the weights in
+//     shared memory behind a barrier ran no faster on an H100, for
+//     apply_rows too;
 //   * the host takes the fewest groups, each of at least kMinGroupRows rows,
 //     whose grid has kFillBlocksPerSM blocks per SM: one group at M = 4 or
-//     8, where a group needs its kUnroll rows in flight and the columns of
-//     a large leaf fill the card anyway, and eight at M = 300 over 2^20
-//     columns, where eight short row loops per tile beat one long one.  On
-//     an H100, one group per tile left M = 300 over 2^20+5 columns behind
-//     torch.addmv, eight groups at M = 8 ran a 2^20-column bf16 stack
-//     slower than one or two, and more blocks per SM forced through launch
-//     bounds spilled registers and ran slower;
-//   * a thread owns kC columns of the tile in every row, kC = 16 bytes of the
-//     widest type.  Where the wrapper found the pointers of w, out and the
-//     stack 16-byte aligned AND the row stride n·sizeof(d) a multiple of 16
-//     bytes (so that every row is aligned, not only the first), the kC
-//     columns are neighbours, moved as one 16-byte chunk per row (a narrower
-//     stack as a narrower vector); otherwise, and in a leaf's last partial
-//     tile, they lie kThreads / groups apart, neighbouring threads on
-//     neighbouring columns, and move element by element.  Both layouts sum
-//     each column in the same order;
-//   * the weights are staged in shared memory kWeightChunk rows at a time; a
-//     zero-weight row with finite contents adds exactly 0, and M = 0 gives w.
-// This follows the plain version rather than the TPU kernel for M > 128: the
-// TPU kernel rounds its partial sum to the storage type between 128-row
-// chunks (kernel.py:120-126), the plain version keeps all of it in f32, and
-// so does this kernel.
+//     8, where a group needs its rows in flight and the columns of a large
+//     leaf fill the card anyway, and eight at M = 300 over 2^20 columns,
+//     where eight short row loops per tile beat one long one.  On an H100,
+//     one group per tile left M = 300 over 2^20+5 columns behind
+//     torch.addmv, and eight groups at M = 8 ran a 2^20-column bf16 stack
+//     slower than one or two;
+//   * a thread owns kChunks chunks of kV columns, kV = 16 bytes of the
+//     widest of w and the stack (4 f32 columns); chunk j of a thread lies
+//     at column (j · width + lane) · kV of the tile, so that every warp
+//     instruction moves one contiguous span.  apply_rows takes one chunk
+//     and 8 rows in flight.  apply_rows_q, whose int8 rows are a third of
+//     the bytes at M = 4 and nearly all of them from M = 32 on, takes 16
+//     columns (four chunks for an f32 w, a 4-byte int8 load each a row) and
+//     4 rows in flight, and loads w after the rows; its kernel is held to
+//     kRowsQBlocksPerSM blocks per SM, 80 registers, and spills a few
+//     words.  On an H100 that ran faster, at M = 4 and at M = 300, than one
+//     chunk a thread as apply_rows, than one 16-byte int8 vector a thread
+//     (w and out then move in 16-byte vectors 64 bytes apart, and the
+//     kernel took every register), and than 16 columns with w held through
+//     the row loop (two blocks an SM);
+//   * int8 codes are read as the aligned 32-bit words around them and
+//     shifted into place (__funnelshift_r by the row's offset within a
+//     word), so a row of any length and a stack at any byte take the vector
+//     layout; each code becomes f32 exactly by a byte permute and one
+//     subtraction rather than an int-to-float conversion, a quarter-rate
+//     instruction on Hopper that set the pace at large M;
+//   * where the wrapper found the pointers of w and out 16-byte aligned (and
+//     for an f32 or bf16 stack also the stack's and its row stride
+//     n·sizeof(d), so that every row is aligned and not only the first), a
+//     full tile takes the vector layout; otherwise, and in a leaf's last
+//     partial tile, a thread's kChunks · kV columns lie kThreads / groups
+//     apart, neighbouring threads on neighbouring columns, and move element
+//     by element, with fewer rows in flight.  Both layouts sum each column
+//     in the same order.  The scales are read by scalar loads and need no
+//     alignment;
+//   * a zero-weight row with finite contents adds exactly 0 (a padding row
+//     of apply_rows_q has weight 0 and scale 0), and M = 0 gives w.  A
+//     block's tile belongs to one leaf, so its scales are the block's own.
+// This follows the plain versions rather than the TPU kernels for M > 128:
+// the TPU kernels round their partial sum to the storage type between
+// 128-row chunks (kernel.py:120-126, :168-184), the plain versions keep all
+// of it in f32, and so does this kernel.
 
-// the kC columns of the thread in one row at element offset `row` of the
-// stack: one chunk at column c0, or columns c0 + k * step below n
-template <typename T, int kC, bool kVec>
-__device__ __forceinline__ void load_cols(const T* p, int64_t row, int64_t c0,
-                                          int step, int64_t n,
-                                          Chunk<T, kC>& v) {
-  if constexpr (kVec) {
-    v = *reinterpret_cast<const Chunk<T, kC>*>(p + row + c0);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kC; ++k) {
-      const int64_t c = c0 + k * step;
-      if (c < n) v.v[k] = p[row + c];
-    }
-  }
+// kV int8 codes of a stack row in the vector layout: the kV/4 words that
+// hold them and the word after, the codes starting `shift` bytes into the
+// first (a row of n codes starts on a word only where 4 divides its offset)
+template <int kV>
+struct Codes {
+  uint32_t x[kV / 4 + 1];
+};
+
+// the kV values at p of a stack row, as one chunk (p kV-aligned)
+template <typename T, int kV>
+__device__ __forceinline__ void load_vals(const T* p, int, Chunk<T, kV>& v) {
+  v = *reinterpret_cast<const Chunk<T, kV>*>(p);
 }
+// kV int8 codes at any byte p, `shift` bytes past a word: the aligned words
+// around them.  The word after holds codes only if shift > 0; otherwise it
+// may lie past the end of the stack and is not read
+template <int kV>
+__device__ __forceinline__ void load_vals(const int8_t* p, int shift,
+                                          Codes<kV>& v) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(p - shift);
+#pragma unroll
+  for (int i = 0; i < kV / 4; ++i) v.x[i] = a[i];
+  v.x[kV / 4] = shift ? a[kV / 4] : 0u;
+}
+
+// value k of a loaded chunk as f32
+template <typename T, int kV>
+__device__ __forceinline__ float val(const Chunk<T, kV>& v, int k, int) {
+  return to_f32(v.v[k]);
+}
+// code k, exactly, without an int-to-float conversion (a quarter-rate
+// instruction on Hopper, which would set the pace at large M): its byte b,
+// shifted into place, becomes the f32 whose bits are 0x4B0000 | (b ^ 0x80),
+// that is 2^23 + 128 + b, and 2^23 + 128 is taken off
+template <int kV>
+__device__ __forceinline__ float val(const Codes<kV>& v, int k, int shift) {
+  const uint32_t word =
+      __funnelshift_r(v.x[k >> 2], v.x[(k >> 2) + 1], 8 * shift);
+  return __int_as_float(__byte_perm(word ^ 0x80808080u, 0x4B000000u,
+                                    0x7440 | (k & 3))) -
+         8388736.0f;
+}
+
+// How a thread of the stacked kernels covers its tile, for w of TO and stacks of TD
+// over kIn inputs: kChunks chunks of kV columns, kRows rows in flight, w
+// loaded after the rows or before them.  apply_rows (kIn = 2): one chunk,
+// kUnroll rows, w first; apply_rows_q (kIn = 3, in[2] the leaf's row
+// scales): 16 columns, kUnrollQ rows, w last
+template <typename TO, typename TD, int kIn>
+struct RowsLayout {
+  static constexpr int kV = 16 / widest<TO, TD>();
+  static constexpr bool kQ = kIn == 3;
+  static constexpr int kChunks = kQ ? 16 / kV : 1;
+  static constexpr int kRows = kQ ? kUnrollQ : kUnroll;
+  static constexpr bool kWLast = kQ;
+  static constexpr int kC = kV * kChunks;  // columns of the thread
+};
 
 // one tile of a stacked leaf, in the chunk layout (kVec) or the strided one;
 // the same for every thread of the block
-template <typename TO, typename TD, bool kVec>
+template <typename TO, typename TD, int kIn, bool kVec>
 __device__ __forceinline__ void rows_tile(
-    const LeafTable<2>::Leaf& leaf, int64_t base, int lg,
-    const float* __restrict__ weights, int64_t m, float* s_w, float* s_part) {
-  constexpr int kC = 16 / widest<TO, TD>();
+    const typename LeafTable<kIn>::Leaf& leaf, int64_t base, int lg,
+    const float* __restrict__ weights, int m, float* s_part) {
+  using L = RowsLayout<TO, TD, kIn>;
+  constexpr int kV = L::kV, kChunks = L::kChunks, kRows = L::kRows;
+  constexpr bool kWLast = L::kWLast;
+  constexpr int kC = L::kC;
+  // int8 rows in the vector layout: realigned words
+  constexpr bool kCodes = kVec && std::is_same<TD, int8_t>::value;
+  using Vals = std::conditional_t<kCodes, Codes<kV>, Chunk<TD, kV>>;
+  // the strided layout loads element by element: fewer rows in flight keep
+  // its registers as many as the vector layout's
+  constexpr int kLoad = kVec ? kRows : (kRows / kChunks > 0 ? kRows / kChunks
+                                                            : 1);
   const int groups = 1 << lg;
   const int width = kThreads >> lg;  // threads in a row group
   const int g = threadIdx.x >> (kThreadsLog2 - lg);
   const int lane = threadIdx.x & (width - 1);
   const int64_t n = leaf.n;
-  const int64_t c0 = kVec ? base + lane * kC : base + lane;
-  const int step = kVec ? 1 : width;
   const TD* d = static_cast<const TD*>(leaf.in[1]);
-  float acc[kC];
+  // the column of value e of the thread's chunk j: kV neighbours at
+  // base + (j * width + lane) * kV, so that every warp instruction moves one
+  // contiguous span; strided, base + lane + (j * kV + e) * width
+  auto col = [&](int j, int e) -> int64_t {
+    return kVec ? base + static_cast<int64_t>(j * width + lane) * kV + e
+                : base + lane + static_cast<int64_t>(j * kV + e) * width;
+  };
+  float acc[kChunks][kV];
 #pragma unroll
-  for (int k = 0; k < kC; ++k) acc[k] = 0.0f;
-  // group 0 writes the output: its w is loaded ahead of the rows
-  Chunk<TO, kC> w;
-  if (g == 0) {
-    load_cols<TO, kC, kVec>(static_cast<const TO*>(leaf.in[0]), 0, c0, step,
-                            n, w);
+  for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+    for (int e = 0; e < kV; ++e) acc[j][e] = 0.0f;
   }
-  // the chunk loop is uniform across the block, so every thread reaches the
-  // barriers
-  for (int64_t r0 = 0; r0 < m; r0 += kWeightChunk) {
-    const int rows =
-        static_cast<int>(m - r0 < kWeightChunk ? m - r0 : kWeightChunk);
-    __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += kThreads) {
-      s_w[j] = __ldg(weights + r0 + j);
-    }
-    __syncthreads();
-    for (int j = g; j < rows; j += kUnroll * groups) {
-      Chunk<TD, kC> v[kUnroll];
+  // group 0 writes the output: its w, loaded ahead of the rows, or after
+  // them (kWLast) where the registers it would hold through the row loop
+  // are better spent on rows in flight
+  Chunk<TO, kV> w[kChunks];
+  auto load_w = [&]() {
+    const TO* pw = static_cast<const TO*>(leaf.in[0]);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = j + u * groups;
-        if (r < rows) {
-          load_cols<TD, kC, kVec>(d, (r0 + r) * n, c0, step, n, v[u]);
+    for (int j = 0; j < kChunks; ++j) {
+      if constexpr (kVec) {
+        load_vals(pw + col(j, 0), 0, w[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kV; ++e) {
+          if (col(j, e) < n) w[j].v[e] = pw[col(j, e)];
         }
       }
+    }
+  };
+  if (!kWLast && g == 0) load_w();
+  // apply_rows_q's row scales (read only where kIn == 3)
+  const float* scales = static_cast<const float*>(leaf.in[kIn - 1]);
+  // group g sums rows g, g + groups, ...: kLoad rows' loads (and their
+  // coefficients') are issued before their FMAs
+  for (int i = g; i < m; i += kLoad * groups) {
+    Vals v[kLoad][kChunks];
+    int shift[kLoad];
+    float cw[kLoad], cs[kLoad];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = j + u * groups;
-        if (r < rows) {
-          const float s = s_w[r];
+    for (int u = 0; u < kLoad; ++u) {
+      const int r = i + u * groups;
+      if (r < m) {
+        cw[u] = __ldg(weights + r);
+        if constexpr (kIn == 3) cs[u] = __ldg(scales + r);
+        const TD* row = d + r * n;
+        shift[u] = kCodes
+                       ? static_cast<int>(reinterpret_cast<uintptr_t>(row) & 3)
+                       : 0;
 #pragma unroll
-          for (int k = 0; k < kC; ++k) {
-            acc[k] = fmaf(s, to_f32(v[u].v[k]), acc[k]);
+        for (int j = 0; j < kChunks; ++j) {
+          if constexpr (kVec) {
+            load_vals(row + col(j, 0), shift[u], v[u][j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kV; ++e) {
+              if (col(j, e) < n) v[u][j].v[e] = row[col(j, e)];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoad; ++u) {
+      if (i + u * groups < m) {
+        // apply_rows_q: the coefficient weights[r] * scales[r], rounded as
+        // the plain version rounds it, never contracted into the FMA
+        const float s = kIn == 3 ? __fmul_rn(cw[u], cs[u]) : cw[u];
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+          for (int e = 0; e < kV; ++e) {
+            acc[j][e] = fmaf(s, val(v[u][j], e, shift[u]), acc[j][e]);
           }
         }
       }
     }
   }
+  if (kWLast && g == 0) load_w();
   if (groups > 1) {
     // groups 1.. hand their sums to group 0, which adds them in group order;
     // neighbouring lanes on neighbouring words
     if (g > 0) {
 #pragma unroll
       for (int k = 0; k < kC; ++k) {
-        s_part[((g - 1) * kC + k) * width + lane] = acc[k];
+        s_part[((g - 1) * kC + k) * width + lane] = acc[k / kV][k % kV];
       }
     }
     __syncthreads();
@@ -424,33 +543,38 @@ __device__ __forceinline__ void rows_tile(
       for (int h = 1; h < groups; ++h) {
 #pragma unroll
         for (int k = 0; k < kC; ++k) {
-          acc[k] += s_part[((h - 1) * kC + k) * width + lane];
+          acc[k / kV][k % kV] += s_part[((h - 1) * kC + k) * width + lane];
         }
       }
     }
   }
   if (g != 0) return;
   TO* out = static_cast<TO*>(leaf.out);
-  if constexpr (kVec) {
-    float r[kC];
 #pragma unroll
-    for (int k = 0; k < kC; ++k) r[k] = to_f32(w.v[k]) - acc[k];
-    store_chunk<TO, kC>(out, c0, r);
-  } else {
+  for (int j = 0; j < kChunks; ++j) {
+    if constexpr (kVec) {
+      float r[kV];
 #pragma unroll
-    for (int k = 0; k < kC; ++k) {
-      const int64_t c = c0 + k * step;
-      if (c < n) store_f32(out, c, to_f32(w.v[k]) - acc[k]);
+      for (int e = 0; e < kV; ++e) r[e] = to_f32(w[j].v[e]) - acc[j][e];
+      store_chunk<TO, kV>(out, col(j, 0), r);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        if (col(j, e) < n) {
+          store_f32(out, col(j, e), to_f32(w[j].v[e]) - acc[j][e]);
+        }
+      }
     }
   }
 }
 
-template <typename TO, typename TD>
-__global__ void __launch_bounds__(kThreads)
-    rows_kernel(const __grid_constant__ LeafTable<2> table,
-                const float* __restrict__ weights, int64_t m, int lg) {
-  constexpr int kC = 16 / widest<TO, TD>();
-  __shared__ float s_w[kWeightChunk];
+// the block's tile of the table: its leaf and first column, in the vector
+// layout where the leaf allows and the tile is full
+template <typename TO, typename TD, int kIn>
+__device__ __forceinline__ void rows_block(const LeafTable<kIn>& table,
+                                           const float* __restrict__ weights,
+                                           int m, int lg) {
+  constexpr int kC = RowsLayout<TO, TD, kIn>::kC;
   // the sums of groups 1..groups-1: (groups - 1) * kC * (kThreads / groups)
   // floats, fewer than kThreads * kC
   __shared__ float s_part[kThreads * kC];
@@ -461,61 +585,24 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t cols = static_cast<int64_t>(kThreads >> lg) * kC;
   const int64_t base = static_cast<int64_t>(t - leaf.tile0) * cols;
   if (leaf.vec && base + cols <= leaf.n) {
-    rows_tile<TO, TD, true>(leaf, base, lg, weights, m, s_w, s_part);
+    rows_tile<TO, TD, kIn, true>(leaf, base, lg, weights, m, s_part);
   } else {
-    rows_tile<TO, TD, false>(leaf, base, lg, weights, m, s_w, s_part);
+    rows_tile<TO, TD, kIn, false>(leaf, base, lg, weights, m, s_part);
   }
 }
 
-// Replaces src/repro/kernels/fused_update/kernel.py:186 apply_rows_q (body
-// _apply_rows_q_kernel at :168).  Bound: M·n int8 bytes, w read and out written
-// (8n bytes for f32 w, 4n for bf16) and 8M bytes of weights and scales, over
-// 3.35 TB/s; the int8 rows are most of it at every real M.  Design: one launch
-// per leaf, one thread per column, ONE f32 accumulator across all M rows, so
-// the reduction is one pass with no cross-block step.  The per-row coefficient
-// weights[i]*scales[i] is formed once per block per row, rounded as the plain
-// version rounds it (__fmul_rn, never contracted into anything else), and
-// staged in shared memory kWeightChunk rows at a time; the f32 delta row never
-// exists.  A warp reads 32 consecutive int8 codes of one row per step (one
-// 32-byte sector).  Like apply_rows this follows the plain version, not the TPU
-// kernel, which rounds its partial sum to the storage type between 128-row
-// chunks (kernel.py:168-184).  A padding row (weight 0, scale 0) adds exactly 0.
-template <typename TW>
+template <typename TO, typename TD>
 __global__ void __launch_bounds__(kThreads)
-    apply_rows_q_kernel(TW* __restrict__ out, const TW* __restrict__ w,
-                        const int8_t* __restrict__ q,
-                        const float* __restrict__ s,
-                        const float* __restrict__ scale, int64_t m,
-                        int64_t n) {
-  __shared__ float c_chunk[kWeightChunk];
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float acc = 0.0f;
-  // uniform across the block: every thread reaches both barriers
-  for (int64_t r0 = 0; r0 < m; r0 += kWeightChunk) {
-    const int rows = static_cast<int>(m - r0 < kWeightChunk ? m - r0 : kWeightChunk);
-    __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-      c_chunk[j] = __fmul_rn(__ldg(s + r0 + j), __ldg(scale + r0 + j));
-    }
-    __syncthreads();
-    if (col < n) {
-      const int8_t* row = q + r0 * n + col;
-#pragma unroll 8
-      for (int j = 0; j < rows; ++j) {
-        acc = fmaf(c_chunk[j],
-                   static_cast<float>(__ldg(row + static_cast<int64_t>(j) * n)),
-                   acc);
-      }
-    }
-  }
-  if (col < n) store_f32(out, col, load_f32(w, col) - acc);
+    rows_kernel(const __grid_constant__ LeafTable<2> table,
+                const float* __restrict__ weights, int m, int lg) {
+  rows_block<TO, TD, 2>(table, weights, m, lg);
 }
 
-int grid_for(int64_t n) {
-  // enough blocks to fill the card several times over; the grid-stride loop
-  // covers the rest
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
+template <typename TO>
+__global__ void __launch_bounds__(kThreads, kRowsQBlocksPerSM)
+    rows_q_kernel(const __grid_constant__ LeafTable<3> table,
+                  const float* __restrict__ weights, int m, int lg) {
+  rows_block<TO, int8_t, 3>(table, weights, m, lg);
 }
 
 template <typename T>
@@ -532,13 +619,18 @@ bool with_dtype(int code, F&& f) {
   return false;
 }
 
-template <typename TW>
-void launch_rows_q(void* out, const void* w, const int8_t* q, const float* s,
-                   const float* scale, int64_t m, int64_t n,
-                   cudaStream_t stream) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  apply_rows_q_kernel<TW><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<TW*>(out), static_cast<const TW*>(w), q, s, scale, m, n);
+// f(Tag<T0>{}, ..., Tag<T(kN-1)>{}) with Ti the storage type of dtype code
+// codes[i]; false for a code it does not know.  f returns whether it
+// launched.
+template <int kN, typename F, typename... Tags>
+bool with_dtypes(const int* codes, F&& f, Tags... tags) {
+  if constexpr (sizeof...(Tags) == kN) {
+    return f(tags...);
+  } else {
+    return with_dtype(codes[sizeof...(Tags)], [&](auto t) {
+      return with_dtypes<kN>(codes, f, tags..., t);
+    });
+  }
 }
 
 // The table of `count` leaves from `words`: kIn + 3 int64 per leaf, the
@@ -569,78 +661,82 @@ bool fill_table(const int64_t* words, int count, int64_t tile,
   return true;
 }
 
-// out = op(a, b) over a table of leaves, a of dtype code a_dtype (also the
-// output's), b of b_dtype; false for a dtype code or a table it does not take
-template <typename Op>
-bool launch_leaves(const int64_t* words, int count, Op op, int a_dtype,
-                   int b_dtype, void* stream) {
-  LeafTable<2> table;
+// out = op(in[0], ..., in[kIn-1]) over a table of leaves, input k of dtype
+// code codes[k] and the output of codes[0]'s; false for a dtype code or a
+// table it does not take.  The dispatch's generic lambdas live here, at
+// namespace scope, and not inside the extern "C" entry points.
+template <int kIn, typename Op>
+bool launch_leaves(const int64_t* words, int count, Op op,
+                   const int (&codes)[kIn], void* stream) {
+  LeafTable<kIn> table;
   if (!fill_table(words, count, kTile, &table)) return false;
-  const int grid = table.tiles;  // one block per tile
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dtype(a_dtype, [&](auto ta) {
-    return with_dtype(b_dtype, [&](auto tb) {
-      using TA = typename decltype(ta)::type;
-      using TB = typename decltype(tb)::type;
-      leaves_kernel<Op, TA, TA, TB><<<grid, kThreads, 0, st>>>(table, op);
-      return true;
-    });
+  return with_dtypes<kIn>(codes, [&](auto t0, auto... ts) {
+    using TO = typename decltype(t0)::type;
+    // one block per tile
+    leaves_kernel<Op, TO, TO, typename decltype(ts)::type...>
+        <<<table.tiles, kThreads, 0, st>>>(table, op);
+    return true;
   });
 }
 
-// out = w - sum_i s_i * d_i over a stacked table, w (and out) of dtype code
-// w_dtype and the stacks of d_dtype; false for a dtype code, a table or an m
-// it does not take
-bool launch_rows_leaves(const int64_t* words, int count, const float* weights,
-                        int64_t m, int w_dtype, int d_dtype, void* stream) {
-  if (m < 0) return false;
+// rows_kernel (kIn = 2) or rows_q_kernel (kIn = 3) over a stacked table, w
+// (and out) of TO and the stacks of TD; false for a table or an m it does
+// not take
+template <int kIn, typename TO, typename TD>
+bool launch_rows(const int64_t* words, int count, const float* weights,
+                 int64_t m, void* stream) {
+  constexpr int kC = RowsLayout<TO, TD, kIn>::kC;
+  if (m < 0 || m > INT32_MAX) return false;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the fewest row groups, at most m, whose grid fills the card
+  LeafTable<kIn> table;
+  int lg = 0;
+  if (!fill_table(words, count, kThreads * kC, &table)) return false;
+  while (lg < kMaxGroupsLog2 && (int64_t{kMinGroupRows} << (lg + 1)) <= m &&
+         table.tiles < kFillBlocksPerSM * sms) {
+    ++lg;
+    fill_table(words, count, (kThreads >> lg) * kC, &table);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dtype(w_dtype, [&](auto tw) {
-    return with_dtype(d_dtype, [&](auto td) {
-      using TO = typename decltype(tw)::type;
-      using TD = typename decltype(td)::type;
-      constexpr int kC = 16 / widest<TO, TD>();
-      // the fewest row groups, at most m, whose grid fills the card
-      LeafTable<2> table;
-      int lg = 0;
-      if (!fill_table(words, count, kThreads * kC, &table)) return false;
-      while (lg < kMaxGroupsLog2 &&
-             (int64_t{kMinGroupRows} << (lg + 1)) <= m &&
-             table.tiles < kFillBlocksPerSM * sms) {
-        ++lg;
-        fill_table(words, count, (kThreads >> lg) * kC, &table);
-      }
-      rows_kernel<TO, TD><<<table.tiles, kThreads, 0, st>>>(table, weights, m,
-                                                           lg);
-      return true;
-    });
+  if constexpr (kIn == 3) {
+    rows_q_kernel<TO><<<table.tiles, kThreads, 0, st>>>(
+        table, weights, static_cast<int>(m), lg);
+  } else {
+    rows_kernel<TO, TD><<<table.tiles, kThreads, 0, st>>>(
+        table, weights, static_cast<int>(m), lg);
+  }
+  return true;
+}
+
+// out = w - sum_i s_i * d_i over a stacked table, w (and out) of dtype code
+// w_dtype and the stacks of d_dtype
+bool launch_rows_leaves(const int64_t* words, int count, const float* weights,
+                        int64_t m, int w_dtype, int d_dtype, void* stream) {
+  const int codes[2] = {w_dtype, d_dtype};
+  return with_dtypes<2>(codes, [&](auto tw, auto td) {
+    using TO = typename decltype(tw)::type;
+    using TD = typename decltype(td)::type;
+    return launch_rows<2, TO, TD>(words, count, weights, m, stream);
   });
 }
 
-// The Option C inner step's launcher: false for a dtype code it does not know.
-// The dispatch's generic lambdas live here, at namespace scope, and not inside
-// the extern "C" entry points.
-bool launch_prox_inner(void* out, const void* theta, const void* g,
-                       const void* w, float eta_in, float lam, int64_t n,
-                       int t_dtype, int g_dtype, int w_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_dtype(t_dtype, [&](auto tt) {
-    return with_dtype(g_dtype, [&](auto tg) {
-      return with_dtype(w_dtype, [&](auto tw) {
-        using TT = typename decltype(tt)::type;
-        using TG = typename decltype(tg)::type;
-        using TW = typename decltype(tw)::type;
-        prox_inner_kernel<TT, TG, TW><<<grid_for(n), kThreads, 0, st>>>(
-            static_cast<TT*>(out), static_cast<const TT*>(theta),
-            static_cast<const TG*>(g), static_cast<const TW*>(w), eta_in, lam,
-            n);
-        return true;
-      });
-    });
+// out = w - sum_i (s_i * scale_i) * q_i over a table of leaves, their int8
+// stacks and their row scales, w (and out) of dtype code w_dtype
+bool launch_rows_q_leaves(const int64_t* words, int count,
+                          const float* weights, int64_t m, int w_dtype,
+                          void* stream) {
+  return with_dtype(w_dtype, [&](auto tw) {
+    using TO = typename decltype(tw)::type;
+    return launch_rows<3, TO, int8_t>(words, count, weights, m, stream);
   });
+}
+
+int status(bool launched) {
+  return launched ? static_cast<int>(cudaGetLastError())
+                  : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -657,10 +753,8 @@ int fu_max_leaves() { return kMaxLeaves; }
 // the value of cudaGetLastError() after its one launch.
 int fu_sub_scaled_leaves(const int64_t* leaves, int count, float c,
                          int w_dtype, int b_dtype, void* stream) {
-  if (!launch_leaves(leaves, count, SubScaled{c}, w_dtype, b_dtype, stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return status(launch_leaves(leaves, count, SubScaled{c},
+                              {w_dtype, b_dtype}, stream));
 }
 
 // out = w - eta_lam * (w - t) over a table of leaves (the Option C outer
@@ -668,11 +762,19 @@ int fu_sub_scaled_leaves(const int64_t* leaves, int count, float c,
 // eta_lam is eta*lam, formed by the caller in double and rounded to f32 once.
 int fu_prox_outer_leaves(const int64_t* leaves, int count, float eta_lam,
                          int w_dtype, int t_dtype, void* stream) {
-  if (!launch_leaves(leaves, count, ProxOuter{eta_lam}, w_dtype, t_dtype,
-                     stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return status(launch_leaves(leaves, count, ProxOuter{eta_lam},
+                              {w_dtype, t_dtype}, stream));
+}
+
+// out = t - eta_in * (g + lam * (t - w)) over a table of leaves (the Option
+// C inner step): leaves as fu_sub_scaled_leaves' with three inputs, count *
+// 6 int64 per table (output, t, g, w, length, vector flag), every leaf of
+// the same dtype triple; the return as fu_sub_scaled_leaves'.
+int fu_prox_inner_leaves(const int64_t* leaves, int count, float eta_in,
+                         float lam, int t_dtype, int g_dtype, int w_dtype,
+                         void* stream) {
+  return status(launch_leaves(leaves, count, ProxInner{eta_in, lam},
+                              {t_dtype, g_dtype, w_dtype}, stream));
 }
 
 // out = w - sum_i weights[i] * d[i] over a table of leaves and their stacks:
@@ -682,43 +784,23 @@ int fu_prox_outer_leaves(const int64_t* leaves, int count, float eta_lam,
 int fu_apply_rows_leaves(const int64_t* leaves, int count,
                          const void* weights, int64_t m, int w_dtype,
                          int d_dtype, void* stream) {
-  if (!launch_rows_leaves(leaves, count, static_cast<const float*>(weights),
-                          m, w_dtype, d_dtype, stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return status(launch_rows_leaves(leaves, count,
+                                   static_cast<const float*>(weights), m,
+                                   w_dtype, d_dtype, stream));
 }
 
-// The Option C inner step.  Returns cudaErrorInvalidValue for a dtype code it
-// does not know, else the value of cudaGetLastError() after the launch.  n
-// must be > 0.
-int fu_prox_inner(void* out, const void* theta, const void* g, const void* w,
-                  float eta_in, float lam, int64_t n, int t_dtype, int g_dtype,
-                  int w_dtype, void* stream) {
-  if (!launch_prox_inner(out, theta, g, w, eta_in, lam, n, t_dtype, g_dtype,
-                         w_dtype, stream)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// q: [m, n] int8 row-major; weights, scales: [m] f32 on the device.  n must be
-// > 0.
-int fu_apply_rows_q(void* out, const void* w, const void* q,
-                    const void* weights, const void* scales, int64_t m,
-                    int64_t n, int w_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* qq = static_cast<const int8_t*>(q);
-  const float* s = static_cast<const float*>(weights);
-  const float* sc = static_cast<const float*>(scales);
-  if (w_dtype == kF32) {
-    launch_rows_q<float>(out, w, qq, s, sc, m, n, st);
-  } else if (w_dtype == kBF16) {
-    launch_rows_q<__nv_bfloat16>(out, w, qq, s, sc, m, n, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// out = w - sum_i (weights[i] * scales[i]) * q[i] over a table of leaves:
+// count * 6 int64, per leaf the output pointer, w, the leaf's [m, n] int8
+// row-major stack q, its [m] f32 row scales on the device, the length (> 0)
+// and the vector flag (set only if out and w are 16-byte aligned: the rows of
+// q are read at any byte); weights: [m] f32 on the device shared by every
+// leaf, m >= 0.  Returns as fu_sub_scaled_leaves.
+int fu_apply_rows_q_leaves(const int64_t* leaves, int count,
+                           const void* weights, int64_t m, int w_dtype,
+                           void* stream) {
+  return status(launch_rows_q_leaves(leaves, count,
+                                     static_cast<const float*>(weights), m,
+                                     w_dtype, stream));
 }
 
 const char* fu_error_string(int code) {

@@ -1,9 +1,8 @@
 """Tree fronts for the fused-update kernels.
 
-``sgd_step_tree``, ``prox_outer_tree``, ``apply_delta_tree`` and
-``apply_rows_tree`` launch once per param tree (per dtype pair and chunk of
-the kernel's table of leaves, see ``kernel.plan_launches``); the other
-fronts launch once per leaf.
+Every front launches once per param tree on the card (per dtype
+combination and chunk of the kernel's table of leaves, see
+``kernel.plan_launches``).
 
 ``mode`` picks the implementation:
 
@@ -38,13 +37,6 @@ def _check_mode(mode: str) -> None:
                          f"'seq' mode comes with the multi-device slice)")
 
 
-def _pick(kernel_fn, ref_fn, mode: str, leaf: torch.Tensor):
-    _check_mode(mode)
-    if mode == "ref" or (mode == "auto" and leaf.device.type == "cpu"):
-        return ref_fn
-    return kernel_fn
-
-
 def _tree_on_kernel(mode: str, leaves) -> bool:
     """Whether a tree of ``leaves`` goes to the kernel, decided once for
     the tree by its first leaf.  Leaves on several devices raise unless
@@ -76,11 +68,15 @@ def sgd_step_tree(w_tree, g_tree, eta: float, mode: str = "auto"):
 
 def prox_inner_tree(theta_tree, g_tree, w_tree, eta_in: float, lam: float,
                     mode: str = "auto"):
-    """Option C inner step θ ← θ − η_in·(g + λ·(θ − w)) over a params tree,
-    one pass per leaf."""
-    return tree_map(
-        lambda t, g, w: _pick(K.prox_inner, R.prox_inner_ref, mode, t)(
-            t, g, w, eta_in, lam), theta_tree, g_tree, w_tree)
+    """Option C inner step θ ← θ − η_in·(g + λ·(θ − w)) over a params tree:
+    on the card one launch per tree."""
+    ts = tree_leaves(theta_tree)
+    if _tree_on_kernel(mode, ts):
+        return tree_unflatten(
+            theta_tree, K.prox_inner_leaves(ts, tree_leaves(g_tree),
+                                            tree_leaves(w_tree), eta_in, lam))
+    return tree_map(lambda t, g, w: R.prox_inner_ref(t, g, w, eta_in, lam),
+                    theta_tree, g_tree, w_tree)
 
 
 def prox_outer_tree(w_tree, theta_tree, eta: float, lam: float,
@@ -128,10 +124,10 @@ def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,
 
 def apply_rows_q_tree(w_tree, q_tree, scales_tree, weights: torch.Tensor,
                       mode: str = "auto", order=None):
-    """Quantized stacked apply w ← w − Σᵢ weights[i]·scales[i]·qᵢ per leaf,
-    one pass each, over the components of a :class:`QuantStack`: ``q_tree``
-    (int8 leaves ``[M, ...]``) and ``scales_tree`` (f32 leaves ``[M]``).  No
-    f32 copy of the bank is made.
+    """Quantized stacked apply w ← w − Σᵢ weights[i]·scales[i]·qᵢ per leaf
+    over the components of a :class:`QuantStack`: ``q_tree`` (int8 leaves
+    ``[M, ...]``) and ``scales_tree`` (f32 leaves ``[M]``, each leaf's own);
+    on the card one launch per tree.  No f32 copy of the bank is made.
 
     ``order`` (the serving window's admission order) is accepted and
     ignored: on one device every leaf reduces its rows in one pass, and the
@@ -139,6 +135,10 @@ def apply_rows_q_tree(w_tree, q_tree, scales_tree, weights: torch.Tensor,
     (``src/repro/kernels/fused_update/ops.py:150-158``), which comes with
     the port's multi-device slice."""
     del order
-    return tree_map(
-        lambda w, q, sc: _pick(K.apply_rows_q, R.apply_rows_q_ref, mode, w)(
-            w, q, sc, weights), w_tree, q_tree, scales_tree)
+    ws = tree_leaves(w_tree)
+    if _tree_on_kernel(mode, ws):
+        return tree_unflatten(
+            w_tree, K.apply_rows_q_leaves(ws, tree_leaves(q_tree),
+                                          tree_leaves(scales_tree), weights))
+    return tree_map(lambda w, q, sc: R.apply_rows_q_ref(w, q, sc, weights),
+                    w_tree, q_tree, scales_tree)

@@ -20,6 +20,8 @@ atol 1e-6, bf16 about one ulp, with η·|g| and ηλ·|w − θ| of the order of
 and the f32 plain versions must equal the reference's bit for bit, which
 is what tells the two roundings of the outer step's ηλ apart.
 """
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -499,8 +501,156 @@ def test_plan_launches_refuses_a_bad_stack(bad):
         K.plan_launches("t", args, outs, 48, rows=3)
 
 
+# --- the q-stack table of apply_rows_q and the three-input prox_inner table -
+
+def _q_table(sizes, w_dtypes, m=4):
+    """outputs, w leaves of sizes[i] elements and dtype w_dtypes[i], their
+    int8 [m, n] stacks and their [m] f32 scales."""
+    ws = [torch.zeros(n, dtype=DTYPES[d][1]) for n, d in zip(sizes, w_dtypes)]
+    qs = [torch.zeros(m, n, dtype=torch.int8) for n in sizes]
+    scales = [torch.zeros(m) for _ in sizes]
+    return [torch.empty_like(w) for w in ws], ws, qs, scales
+
+
+@pytest.mark.parametrize("max_leaves", [1, 3, 48])
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_launches_q_stack_covers_every_leaf_once(case, max_leaves):
+    # the w dtype of PLAN_CASES' first input; the stack is int8 and the
+    # scales f32 for every leaf, so one launch per w dtype and chunk
+    sizes, dtypes = PLAN_CASES[case]
+    w_dtypes = [a for a, _ in dtypes]
+    outs, ws, qs, scales = _q_table(sizes, w_dtypes)
+    args = (("w", ws), ("q_stack", qs), ("scales", scales))
+    plan = K.plan_launches("t", args, outs, max_leaves, rows=4)
+    seen = [i for launch in plan for i in launch.leaves]
+    assert sorted(seen) == [i for i, n in enumerate(sizes) if n]
+    per_dtype = collections.Counter(d for d, n in zip(w_dtypes, sizes) if n)
+    assert len(plan) == sum(-(-c // max_leaves) for c in per_dtype.values())
+    codes = {F: 0, B: 1}
+    for launch in plan:
+        assert 1 <= len(launch.leaves) <= max_leaves
+        # w's code, int8's, f32's
+        assert launch.codes == (codes[w_dtypes[launch.leaves[0]]], 2, 0)
+        # per leaf: output, w, q, scales pointers, length, vector flag (out
+        # and w are aligned; the int8 rows do not count)
+        assert len(launch.words) == 6 * len(launch.leaves)
+        for j, i in enumerate(launch.leaves):
+            assert list(launch.words[6 * j:6 * j + 6]) == [
+                outs[i].data_ptr(), ws[i].data_ptr(), qs[i].data_ptr(),
+                scales[i].data_ptr(), sizes[i], 1]
+
+
+@pytest.mark.parametrize("n", [16, 32, 10, 9])
+def test_plan_launches_flags_q_stacks_by_w_and_out_alone(n):
+    # an int8 row is n bytes, 16-byte aligned only where 16 divides n; the
+    # kernel reads the rows as aligned words and shifts the codes into
+    # place, so neither the row stride, nor the stack's start, nor the
+    # scales' pointer clears the flag: only out and w do.  An f32 stack of
+    # the same rows keeps its row-stride rule
+    outs, ws, qs, scales = _q_table([n], [F], m=5)
+    odd_q = torch.zeros(5 * n + 3, dtype=torch.int8)[3:].view(5, n)
+    odd_scales = torch.zeros(6)[1:]
+    odd_w = torch.zeros(n + 1)[1:]
+    assert odd_q.data_ptr() % 16 == 3 and odd_scales.data_ptr() % 16 == 4
+    for q, sc, w, vec in ((qs[0], scales[0], ws[0], 1),
+                          (odd_q, odd_scales, ws[0], 1),
+                          (qs[0], scales[0], odd_w, 0)):
+        plan = K.plan_launches("t", (("w", [w]), ("q_stack", [q]),
+                                     ("scales", [sc])), outs, 48, rows=5)
+        assert len(plan) == 1 and plan[0].leaves == (0,)
+        assert plan[0].codes == (0, 2, 0)
+        assert plan[0].words[5] == vec
+    f32 = K.plan_launches("t", (("w", ws), ("d", [qs[0].float()])), outs,
+                          48, rows=5)
+    assert f32[0].words[4] == int(n % 4 == 0)
+
+
+@pytest.mark.parametrize("bad", ["int8 w", "int8 scales", "f32 scales "
+                                 "too long", "bf16 scales", "scales [M, 1]",
+                                 "int32 stack"])
+def test_plan_launches_takes_int8_only_as_the_stack(bad):
+    outs, ws, qs, scales = _q_table([4, 12, 0], [F, F, F], m=3)
+    args = (("w", ws), ("q_stack", qs), ("scales", scales))
+    assert [launch.leaves for launch in
+            K.plan_launches("t", args, outs, 48, rows=3)] == [(0, 1)]
+    i = 2 if bad == "f32 scales too long" else 1
+    if bad == "int8 w":
+        ws[i] = torch.zeros(12, dtype=torch.int8)
+    elif bad == "int32 stack":
+        qs[i] = torch.zeros(3, 12, dtype=torch.int32)
+    else:
+        scales[i] = {"int8 scales": torch.zeros(3, dtype=torch.int8),
+                     "f32 scales too long": torch.zeros(4),
+                     "bf16 scales": torch.zeros(3, dtype=torch.bfloat16),
+                     "scales [M, 1]": torch.zeros(3, 1)}[bad]
+    # the message names the leaf, an empty one too, and what is wrong
+    want = {"int8 w": r"w\[1\] has dtype torch.int8; the kernel takes "
+                      r"float32 or bfloat16$",
+            "int32 stack": r"q_stack\[1\] has dtype torch.int32; the kernel "
+                           r"takes float32 or bfloat16 or int8$",
+            "int8 scales": r"scales\[1\] has dtype torch.int8; the kernel "
+                           r"takes float32$",
+            "bf16 scales": r"scales\[1\] has dtype torch.bfloat16",
+            "f32 scales too long": r"scales\[2\] has shape \(4,\), "
+                                   r"expected \(3,\)",
+            "scales [M, 1]": r"scales\[1\] has shape \(3, 1\)"}[bad]
+    with pytest.raises((TypeError, ValueError), match=want):
+        K.plan_launches("t", args, outs, 48, rows=3)
+    # without rows there is no stack position, and without scales an int8
+    # stack means nothing: an int8 input is refused
+    with pytest.raises(TypeError, match="float32 or bfloat16$"):
+        K.plan_launches("t", (("w", ws[:1]), ("b", [qs[0][0]])), outs[:1], 48)
+    with pytest.raises(TypeError, match=r"d\[0\] has dtype torch.int8; the "
+                                        r"kernel takes float32 or bfloat16$"):
+        K.plan_launches("t", (("w", ws[:1]), ("d", qs[:1])), outs[:1], 48,
+                        rows=3)
+
+
+PROX_INNER_PLAN = {
+    "one triple": ([3, 0, 17, 1, 8192], [(F, F, F)] * 5),
+    "mixed triples": ([5, 7, 0, 9, 11, 13, 2, 6, 4],
+                      [(F, F, F), (B, B, B), (F, B, B), (F, F, F),
+                       (F, B, F), (B, F, B), (F, B, B), (B, B, F),
+                       (B, B, B)]),
+    "long tree": ([1 + (i * 37) % 50 for i in range(101)], [(F, B, F)] * 101),
+}
+
+
+@pytest.mark.parametrize("max_leaves", [1, 3, 48])
+@pytest.mark.parametrize("case", list(PROX_INNER_PLAN))
+def test_plan_launches_three_inputs_cover_every_leaf_once(case, max_leaves):
+    sizes, dtypes = PROX_INNER_PLAN[case]
+    trees = [[torch.zeros(n, dtype=DTYPES[d[k]][1])
+              for n, d in zip(sizes, dtypes)] for k in range(3)]
+    outs = [torch.empty_like(t) for t in trees[0]]
+    args = tuple(zip(("theta", "g", "w"), trees))
+    plan = K.plan_launches("t", args, outs, max_leaves)
+    seen = [i for launch in plan for i in launch.leaves]
+    assert sorted(seen) == [i for i, n in enumerate(sizes) if n]
+    triples = collections.Counter(d for d, n in zip(dtypes, sizes) if n)
+    assert len(plan) == sum(-(-c // max_leaves) for c in triples.values())
+    codes = {F: 0, B: 1}
+    for launch in plan:
+        assert list(launch.leaves) == sorted(launch.leaves)
+        assert all(tuple(codes[d] for d in dtypes[i]) == launch.codes
+                   for i in launch.leaves)
+        assert len(launch.words) == 6 * len(launch.leaves)
+        for j, i in enumerate(launch.leaves):
+            assert list(launch.words[6 * j:6 * j + 6]) == [
+                outs[i].data_ptr(), *(t[i].data_ptr() for t in trees),
+                sizes[i], 1]
+    # a misaligned w (a view 4 bytes in) clears the leaf's flag alone
+    trees[2][0] = torch.zeros(sizes[0] + 1, dtype=trees[2][0].dtype)[1:]
+    plan = K.plan_launches("t", args, outs, 48)
+    flags = {i: launch.words[6 * j + 5] for launch in plan
+             for j, i in enumerate(launch.leaves)}
+    assert flags[0] == int(trees[2][0].data_ptr() % 16 == 0)
+    assert all(flags[i] == 1 for i in flags if i)
+
+
 # each table front as a function of (w tree, other tree), and how the other
-# tree is built from a w-shaped tree (apply_rows: a 2-row stack per leaf)
+# tree is built from a w-shaped tree (apply_rows: a 2-row stack per leaf;
+# apply_rows_q: a 2-row int8 stack and its scales per leaf)
 TABLE_FRONTS = {
     "sgd_step": (lambda w, b, mode: ops.sgd_step_tree(w, b, 0.5, mode=mode),
                  lambda t: t),
@@ -514,7 +664,36 @@ TABLE_FRONTS = {
         w, b, torch.ones(2), mode=mode),
         lambda t: {"a": torch.stack([t["a"]] * 2),
                    "b": [torch.stack([t["b"][0]] * 2)]}),
+    "prox_inner": (lambda w, b, mode: ops.prox_inner_tree(w, b, b, 0.1, 2.0,
+                                                          mode=mode),
+                   lambda t: t),
+    "apply_rows_q": (lambda w, b, mode: ops.apply_rows_q_tree(
+        w, b[0], b[1], torch.full((2,), 0.5), mode=mode),
+        lambda t: ({"a": torch.stack([t["a"]] * 2).to(torch.int8),
+                    "b": [torch.stack([t["b"][0]] * 2).to(torch.int8)]},
+                   {"a": torch.full((2,), 0.25, device=t["a"].device),
+                    "b": [torch.full((2,), 0.25, device=t["b"][0].device)]})),
 }
+
+
+@pytest.mark.parametrize("kind", list(TABLE_FRONTS))
+def test_table_fronts_auto_on_cpu_take_the_plain_version(kind, monkeypatch):
+    front, other = TABLE_FRONTS[kind]
+
+    def no_build():
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(K, "_lib", no_build)
+    rng = np.random.RandomState(3)
+    w = {"a": torch.from_numpy(rng.randn(3).astype(np.float32)),
+         "b": [torch.from_numpy(rng.randn(2, 2).astype(np.float32))]}
+    b = other({"a": torch.from_numpy(rng.randn(3).astype(np.float32) * 4),
+               "b": [torch.from_numpy(
+                   rng.randn(2, 2).astype(np.float32) * 4)]})
+    got, want = front(w, b, "auto"), front(w, b, "ref")
+    for x, y, w0 in zip(tree_leaves(got), tree_leaves(want), tree_leaves(w)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+        assert not torch.equal(x, w0)
+    assert all(v == 0 for v in K.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("kind", list(TABLE_FRONTS))

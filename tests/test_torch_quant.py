@@ -16,6 +16,8 @@ every mismatch must be such an exact tie (``x / scale`` within 1e-6 of
 k + 1/2 in float64) and a ±1, and the tests count them rather than tolerate
 them silently.  Scales are absmax/127 in f32 in both and must be bit-equal.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,67 @@ def test_apply_rows_q_wrapper_checks_inputs_before_building():
     with pytest.raises(ValueError):
         ops.apply_rows_q_tree({"a": w}, {"a": q}, {"a": torch.zeros(2)},
                               torch.zeros(2), mode="kernel")
+
+
+# the MNIST CNN's 8 leaves (configs/paper_models.py MNIST_CNN), the tree a
+# served int8 window applies
+CNN_SHAPES = {"conv": [{"b": (8,), "w": (3, 3, 1, 8)},
+                       {"b": (16,), "w": (3, 3, 8, 16)}],
+              "fc": [{"b": (64,), "w": (784, 64)},
+                     {"b": (10,), "w": (64, 10)}]}
+
+
+@functools.lru_cache(maxsize=None)
+def _cnn_q_case(w_dtype):
+    """w, int8 stacks and each leaf's own row scales over the CNN's leaves,
+    the shared weights (M = 8, padding rows of weight 0 and scale 0), and
+    per leaf the JAX package's ``apply_rows_q`` through its ref and its
+    Pallas kernel in interpret mode."""
+    m = 8
+    rng = np.random.RandomState(11)
+    shapes = jax.tree.leaves(CNN_SHAPES, is_leaf=lambda x: isinstance(x,
+                                                                      tuple))
+    jdt = DTYPES[w_dtype][0]
+    ws = [jnp.asarray(0.5 * rng.randn(*sh), jdt) for sh in shapes]
+    qs = [rng.randint(-127, 128, size=(m, *sh)).astype(np.int8)
+          for sh in shapes]
+    scales = [((0.5 + rng.rand(m)) / 127.0).astype(np.float32)
+              for _ in shapes]
+    weights = (rng.rand(m) / np.sqrt(m)).astype(np.float32)
+    weights[1::3] = 0.0
+    for sc in scales:
+        sc[1::3] = 0.0
+    wants = [(JR.apply_rows_q_ref(w, q, sc, weights),
+              JK.apply_rows_q(w, jnp.asarray(q), sc, weights,
+                              interpret=True))
+             for w, q, sc in zip(ws, qs, scales)]
+    return ws, qs, scales, weights, wants
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_apply_rows_q_tree_matches_jax_on_cnn_leaves(w_dtype, mode):
+    """``apply_rows_q_tree`` (one launch per tree on the card, the plain
+    version here) against the JAX package's ``apply_rows_q`` leaf by leaf:
+    its ref and its Pallas kernel in interpret mode."""
+    ws, qs, scales, weights, wants = _cnn_q_case(w_dtype)
+    tw = {f"{i}": _t(w) for i, w in enumerate(ws)}
+    tqs = {f"{i}": torch.from_numpy(q) for i, q in enumerate(qs)}
+    tsc = {f"{i}": torch.from_numpy(sc) for i, sc in enumerate(scales)}
+    got = ops.apply_rows_q_tree(tw, tqs, tsc, torch.from_numpy(weights),
+                                mode=mode)
+    tol = BF16_TOL if w_dtype == "bfloat16" else ROWS_TOL
+    for i, (w, q, want) in enumerate(zip(ws, qs, wants)):
+        leaf = got[f"{i}"]
+        assert leaf.dtype == DTYPES[w_dtype][1] and leaf.shape == w.shape
+        for one in want:
+            np.testing.assert_allclose(_f32(leaf), _f32(one), **tol)
+        # the leaf's own scales: another leaf's would not do
+        other = JR.apply_rows_q_ref(w, q, scales[(i + 1) % len(scales)],
+                                    weights)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(_f32(leaf), _f32(other), **tol)
+    assert K.LAUNCHES["apply_rows_q"] == 0
 
 
 # -- quantization ---------------------------------------------------------

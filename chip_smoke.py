@@ -136,6 +136,40 @@ Phases; any failure exits non-zero and prints no result line:
      identical timeline, params and SCAFFOLD's c_global within PARAM_ATOL,
      and the card-against-card spread printed.
 
+  9. scenario and tuner -- (m) the ``scale`` row of
+     ``benchmarks/run.py:963-1060`` at SCALE_NS clients (10^3 to 10^6): the
+     ``DeviceScheduler`` on the card (``SCALE_SCHED``: 30 s windows, cohort
+     cap 256, 8 cycles a window; speed tiers, a diurnal curve, 2% dropout,
+     5% scale / sign-flip adversaries), one warm-up window and SCALE_WINDOWS
+     timed ones, each cohort corrupting a seeded [256, 2^16] f32 bank
+     (``scale_rows``), admitted through the robust clip path and applied
+     by one ``apply_admitted_rows`` (``apply_rows``, once a window).
+     Checks: at SCALE_ORACLE_N clients the first window against the
+     float64 ``EventStream`` (ids exactly, times within rel 1e-4, the
+     window's edge and the cap's cut left out) and the first 3 windows
+     against the same scheduler on the CPU (ids and stats exactly); 0 host
+     materializations; s/window at 10^6 within 0.2 × the client ratio of
+     s/window at 10^3; the device kernels of a window from
+     ``torch.profiler``.  (n) the MNIST CNN under
+     ``examples/scenario_churn.py:70-85``'s churn (30 clients, two speed
+     tiers, 5% dropout, 10% ×50 / sign-flip adversaries), Option A,
+     ``buffered(8)`` plain and with ``robust="clip"``, 48 rounds, each
+     with ``scheduler="device"`` and ``"heap"``: identical histories and
+     params bit for bit (cuDNN's deterministic algorithms), corrupted rows,
+     clipped rows under clip, finite params under clip, ``apply_rows`` once
+     per stacked apply.  (o) a 4-arm ``TuneRunner`` sweep (persafl /
+     fedprox × immediate / buffered(8)) under (n)'s churn with
+     ``default_rules()``, journaled: arms on one seed evaluate at the same
+     simulated times, and a second sweep over the journal skips every arm;
+     then one arm under a rule sure to fire (``AccPlateau(1, 2.0)``) stops
+     at its second eval, on its first run's timeline.  Counts are zeroed
+     just before each of (m)'s timed loops, (n) and (o)'s first sweep, and
+     read just after.  (p) the two event sources ``FLRun`` chooses between,
+     on the host: the heap and the ``EventStream`` at EVENT_NS clients
+     under ``DelayModel`` and the scale row's churn, EVENT_COUNT events
+     each, the same events tuple for tuple; the seconds to the first event
+     and to the last, and where ``scheduler="auto"`` switches.
+
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -149,6 +183,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2258,6 +2293,449 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phases (m)-(o): the scenario engine and the tuner
+# ---------------------------------------------------------------------------
+
+# (m): the scale row of benchmarks/run.py:963-1060 at its full length
+SCALE_NS = (1_000, 10_000, 100_000, 1_000_000)
+SCALE_WINDOWS = 5
+SCALE_WIDTH = 1 << 16            # synthetic per-client delta width
+SCALE_SCHED = dict(window_len=30.0, cohort_cap=256, cycles_per_window=8)
+SCALE_ORACLE_N = 10_000
+# (n): examples/scenario_churn.py:70-85 on the fig2 clients
+CHURN_PCFG = dict(option="A", q_local=5, eta=0.002, lam=25.0, inner_steps=3,
+                  inner_eta=0.02)
+CHURN_ROUNDS = 48
+# (o): a 4-arm sweep on the same CNN and churn
+TUNE_ROUNDS, TUNE_EVAL_EVERY = 24, 8
+# (p): the heap against the stream, around FLRun's "auto" switch at 4096
+EVENT_NS = (30, 1_000, 4_096, 10_000, 100_000)
+EVENT_COUNT = 10_000
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def scale_spec(n: int):
+    from repro_torch.fl.scenario import (Adversarial, Diurnal,
+                                         ScenarioSpec, Tier)
+    return ScenarioSpec(
+        n_clients=n, seed=0,
+        tiers=(Tier("fast", 0.5, 0.7), Tier("slow", 0.5, 1.6)),
+        diurnal=Diurnal(period=400.0, floor=0.25), dropout=0.02,
+        adversarial=Adversarial(frac=0.05, kinds=("scale", "sign_flip")))
+
+
+def device_kernels(torch, fn) -> dict:
+    """The device kernels ``fn()`` launches and their summed device time
+    (ms), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return {"kernels": len(kernels), "device_ms": sum(
+        e.time_range.elapsed_us() for e in kernels) / 1e3}
+
+
+def scale_window(torch, sched, model, base, state, stats):
+    """One window of the scale row: the scheduler's cohort corrupts a
+    seeded bank (``scale_rows``), which is admitted through the robust clip
+    path and applied with one ``apply_admitted_rows``; returns the state."""
+    from repro_torch.core import (apply_admitted_rows, bank_row_norms,
+                                  mask_rows, robust_admission_weights,
+                                  scale_rows)
+    from repro_torch.fl.engine import DeltaBank
+    ids, _ = sched.next_window()
+    fill = len(ids)
+    if fill == 0:
+        return state
+    cap = sched.cohort_cap
+    bank = DeltaBank(stacked=base, k=fill, stats=stats["bank"])
+    fac = model.corruption_factors(ids)
+    vec = np.ones(cap, np.float32)
+    vec[:fill] = fac
+    stacked = scale_rows(bank.stacked, vec)
+    stats["corrupted"] += int(np.sum(fac != 1.0))
+    weights, keep, info = robust_admission_weights(
+        cap, [(j, 0) for j in range(fill)], bank_row_norms(stacked),
+        beta=0.1, count=fill, method="clip")
+    stats["clipped"] += info["clipped"]
+    stats["applies"] += 1
+    if not bool(keep.all()):
+        stacked = mask_rows(stacked, keep)
+    return apply_admitted_rows(state, stacked, weights, fill,
+                               staleness_max=0, staleness_sum=0.0)
+
+
+def scale_oracle_check(torch, device):
+    """The first window at SCALE_ORACLE_N clients against the float64
+    EventStream: the cohort is the first cohort_cap first completions, ids
+    exactly and times within rel 1e-4, leaving out completions within 1e-3
+    of the window's end and within rel 1e-5 of the cap's cut.  Then the
+    first 3 windows against the same scheduler on the CPU: ids exactly."""
+    from repro_torch.fl.scenario import DeviceScheduler, EventStream, KIND_UP
+    spec = scale_spec(SCALE_ORACLE_N)
+    window = SCALE_SCHED["window_len"]
+    card = DeviceScheduler.from_spec(spec, device=device, **SCALE_SCHED)
+    cpu = DeviceScheduler.from_spec(spec, device="cpu", **SCALE_SCHED)
+    ids, times = card.next_window()
+    first = {}
+    for t, i, kind, _, _ in EventStream(spec.build()).events():
+        if t >= window:
+            break
+        if kind == KIND_UP and i not in first:
+            first[i] = t
+    order = sorted((t, i) for i, t in first.items())
+    cap = card.cohort_cap
+    cut = order[cap][0] if len(order) > cap else window
+    inside = {i: t for t, i in order if t < cut * (1 - 1e-5)
+              and abs(t - window) > 1e-3}
+    outside = {i for t, i in order if t > cut * (1 + 1e-5)}
+    got = dict(zip(ids.tolist(), times.tolist()))
+    check(len(inside) > cap // 2, f"(m) oracle: only {len(inside)} certain "
+                                  f"completions")
+    missing = [i for i in inside if i not in got]
+    check(not missing, f"(m) oracle: {len(missing)} certain completions "
+                       f"missing from the card's cohort, e.g. {missing[:5]}")
+    check(not outside & set(got), "(m) oracle: the card's cohort holds "
+                                  "completions past the cap's cut")
+    rel = max(abs(got[i] - t) / t for i, t in inside.items())
+    check(rel <= 1e-4, f"(m) oracle: arrival times differ by rel {rel}")
+    check(bool(np.all(np.diff(times) >= 0)), "(m) cohort not in arrival "
+                                             "order")
+    cpu_ids, cpu_times = cpu.next_window()
+    tdiff = [float(np.max(np.abs(times - cpu_times))) if len(times)
+             == len(cpu_times) else float("inf")]
+    check(np.array_equal(ids, cpu_ids), "(m) window 1: card and CPU cohorts "
+                                        "differ")
+    for w in (2, 3):
+        a, ta = card.next_window()
+        b, tb = cpu.next_window()
+        check(np.array_equal(a, b), f"(m) window {w}: card and CPU cohorts "
+                                    f"differ")
+        tdiff.append(float(np.max(np.abs(ta - tb))) if len(ta) else 0.0)
+    check(card.stats == cpu.stats, f"(m) stats card {card.stats} cpu "
+                                   f"{cpu.stats}")
+    print(f"scale (m) n={SCALE_ORACLE_N}: window 1 against the float64 "
+          f"EventStream: {len(inside)} certain completions all in the "
+          f"cohort of {len(ids)}, max rel time diff {rel:.3e}; windows 1-3 "
+          f"card vs CPU: ids identical, max |time diff| "
+          f"{max(tdiff):.3e} s, stats {json.dumps(card.stats)}", flush=True)
+
+
+def scale_phase(torch, device="cuda"):
+    """(m): the DeviceScheduler on the card at SCALE_NS clients, the scale
+    row's window pipeline behind it; counts zeroed just before and read
+    just after.  Returns ``{"apply_rows": launches}``."""
+    from repro_torch.core import init_server_state
+    from repro_torch.fl.scenario import DeviceScheduler
+    from repro_torch.kernels.fused_update import kernel as K
+    scale_oracle_check(torch, device)
+    cap = 1 << (SCALE_SCHED["cohort_cap"] - 1).bit_length()
+    gen = torch.Generator().manual_seed(0)
+    base = {"w": (0.01 * torch.randn(cap, SCALE_WIDTH, generator=gen))
+            .to(device)}
+    rows = []
+    launches = 0
+    for n in SCALE_NS:
+        t0 = time.perf_counter()
+        model = scale_spec(n).build()
+        sched = DeviceScheduler(model, device=device, **SCALE_SCHED)
+        state = init_server_state(
+            {"w": torch.zeros(SCALE_WIDTH, dtype=torch.float32)}, device)
+        stats = {"bank": {}, "corrupted": 0, "clipped": 0, "applies": 0}
+        setup_s = time.perf_counter() - t0
+        # a warm-up window, with the bank pipeline behind it
+        state = scale_window(torch, sched, model, base, state, stats)
+        stats.update(corrupted=0, clipped=0, applies=0)
+        sync(torch, device)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(SCALE_WINDOWS):
+            state = scale_window(torch, sched, model, base, state, stats)
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        n_rows = K.LAUNCHES["apply_rows"]
+        launches += n_rows
+        check(n_rows == stats["applies"] > 0,
+              f"(m) n={n}: apply_rows launched {n_rows} times for "
+              f"{stats['applies']} window applies")
+        check(torch.isfinite(state.params["w"]).all().item(),
+              f"(m) n={n}: params not finite")
+        sched_wall = None
+        per_window = {}
+        if torch.device(device).type == "cuda":
+            per_window["scheduler"] = device_kernels(torch, sched.next_window)
+            per_window["window"] = device_kernels(torch, lambda: scale_window(
+                torch, sched, model, base, state, stats))
+            sync(torch, device)
+            t1 = time.perf_counter()
+            for _ in range(SCALE_WINDOWS):
+                sched.next_window()
+            sync(torch, device)
+            sched_wall = (time.perf_counter() - t1) / SCALE_WINDOWS
+        host_mat = stats["bank"].get("host_materializations", 0)
+        st = sched.stats
+        row = {"n": n, "s_per_window": wall / SCALE_WINDOWS,
+               "scheduler_s_per_window": sched_wall,
+               "arrivals": st["arrivals"], "dropouts": st["dropouts"],
+               "overflow_arrivals": st["overflow_arrivals"],
+               "saturated_clients": st["saturated_clients"],
+               "corrupted_rows": stats["corrupted"],
+               "clipped": stats["clipped"], "host_materializations": host_mat,
+               "device_kernels_per_window": per_window,
+               "setup_s": setup_s}
+        rows.append(row)
+        print(f"scale (m) n={n}: {json.dumps(row)}", flush=True)
+        check(host_mat == 0, f"(m) n={n}: {host_mat} host materializations")
+        check(st["arrivals"] > 0 and stats["corrupted"] > 0,
+              f"(m) n={n}: no arrivals or no corrupted rows ({st})")
+    n_ratio = rows[-1]["n"] / rows[0]["n"]
+    t_ratio = rows[-1]["s_per_window"] / max(rows[0]["s_per_window"], 1e-9)
+    print(f"scale (m) sub-linear gate: t_ratio {t_ratio:.3f} <= 0.2 x "
+          f"n_ratio {n_ratio:.0f}", flush=True)
+    check(t_ratio <= 0.2 * n_ratio, f"(m) s/window grew {t_ratio:.1f}x for "
+                                    f"{n_ratio:.0f}x clients")
+    return {"apply_rows": launches}
+
+
+def churn_run(setup, robust, scheduler, device):
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.fl import FLRun, buffered, strategy
+    clients, params, loss, _ = setup
+    return FLRun(clients=clients, loss_fn=loss, init_params=params,
+                 pcfg=PersAFLConfig(**CHURN_PCFG),
+                 delays=churn_spec(len(clients)).build(),
+                 strategy=strategy("persafl", option="A"),
+                 schedule=buffered(8, robust=robust), batch_size=16, seed=0,
+                 scheduler=scheduler, device=device)
+
+
+def churn_spec(n: int):
+    from repro_torch.fl.scenario import Adversarial, ScenarioSpec, Tier
+    return ScenarioSpec(
+        n_clients=n, seed=0,
+        tiers=(Tier("phone", 0.5, 0.7), Tier("iot", 0.5, 1.8)),
+        dropout=0.05, adversarial=Adversarial(
+            frac=0.1, kinds=("scale", "sign_flip"), magnitude=50.0))
+
+
+def churn_phase(torch, setup, device="cuda"):
+    """(n): the MNIST CNN under churn with adversaries, buffered(8) plain
+    and clipped, each run with the stream (``scheduler="device"``) and the
+    heap; counts zeroed just before and read just after.  Returns the
+    ``apply_rows`` launches."""
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.tree import tree_leaves
+    ev = setup[3]
+    out = {}
+    # the heap and the stream must give the same params bit for bit: the
+    # cohort's convolutions take cuDNN's deterministic algorithms here
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # warm-up, untimed: the first cohort calls pick their algorithms
+        churn_run(setup, None, "heap", device).run(max_rounds=16)
+        K.reset_launches()
+        with stacked_applies(K) as stacked:
+            for robust in (None, "clip"):
+                for scheduler in ("device", "heap"):
+                    run = churn_run(setup, robust, scheduler, device)
+                    t0 = time.perf_counter()
+                    hist = run.run(max_rounds=CHURN_ROUNDS)
+                    sync(torch, device)
+                    wall = time.perf_counter() - t0
+                    out[robust, scheduler] = (run, hist)
+                    st = run.stats
+                    print(f"churn (n) robust={robust} scheduler={scheduler}"
+                          f" {CHURN_ROUNDS} rounds: wall {wall:.3f} s, "
+                          f"{wall / CHURN_ROUNDS:.4f} s/round, final acc "
+                          f"{ev(run.params):.4f}, finite "
+                          f"{finite(torch, run.params)}, stats "
+                          f"{json.dumps(st)}", flush=True)
+                    check(st["scheduler"] == scheduler,
+                          f"(n) ran the {st['scheduler']} scheduler")
+                    check(st["corrupted_rows"] > 0,
+                          f"(n) robust={robust}: no corrupted rows")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = K.LAUNCHES["apply_rows"]
+    check(launches == stacked["planned"] > 0,
+          f"(n): apply_rows launched {launches} times for "
+          f"{stacked['applies']} stacked applies, {stacked['planned']} "
+          f"planned")
+    for robust in (None, "clip"):
+        (rd, hd), (rh, hh) = out[robust, "device"], out[robust, "heap"]
+        check(hd.as_dict() == hh.as_dict(),
+              f"(n) robust={robust}: histories differ between the stream "
+              f"and the heap")
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(rd.params), tree_leaves(rh.params)))
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rd.params), tree_leaves(rh.params))),
+              f"(n) robust={robust}: params differ by {diff} between the "
+              f"stream and the heap")
+        for key in ("corrupted_rows", "robust_clipped", "dropouts"):
+            check(rd.stats[key] == rh.stats[key],
+                  f"(n) robust={robust}: {key} differs")
+    clip = out["clip", "device"][0]
+    check(clip.stats["robust_clipped"] > 0, "(n) clip clipped no row")
+    check(finite(torch, clip.params), "(n) clip: params not finite")
+    print(f"churn (n): stream and heap identical (History, params bit for "
+          f"bit) under both flushes; apply_rows {launches} launches for "
+          f"{stacked['applies']} stacked applies", flush=True)
+    return {"apply_rows": launches}
+
+
+def tune_phase(torch, setup, device="cuda"):
+    """(o): a 4-arm TuneRunner sweep (persafl / fedprox × immediate /
+    buffered(8)) on the CNN under the churn of (n), self-stopping with
+    default_rules(), journaled; then the same sweep again over the journal,
+    which must skip every arm.  Counts zeroed just before and read just
+    after the first sweep."""
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.tune import SweepSpec
+    clients, params, loss, ev = setup
+    prob = {"clients": clients, "loss_fn": loss, "init_params": params,
+            "eval_fn": ev, "pcfg": PersAFLConfig(**CHURN_PCFG),
+            "batch_size": 16, "eval_every": TUNE_EVAL_EVERY}
+    sweep = SweepSpec(
+        strategies=({"name": "persafl", "option": "A"},
+                    {"name": "fedprox", "mu": 0.1}),
+        schedules=("immediate", "buffered(8)"),
+        scenario=churn_spec(len(clients)), seeds=(0,), group="mnist/churn")
+    arms = sweep.arms(max_rounds=TUNE_ROUNDS)
+    check(len(arms) == 4, f"(o) {len(arms)} arms")
+    with tempfile.TemporaryDirectory() as tmp:
+        return tune_sweeps(torch, prob, arms, Path(tmp) / "journal.jsonl",
+                           device)
+
+
+def tune_sweeps(torch, prob, arms, journal: Path, device):
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.tune import TuneRunner, default_rules
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with stacked_applies(K) as stacked:
+        trials = TuneRunner(lambda arm: prob, journal=str(journal),
+                            stop_rule=default_rules(),
+                            device=device).run_sweep(arms)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in ("apply_scaled", "apply_rows")}
+    for t in trials:
+        print(f"tune (o) {t.arm.name}: {t.status} {t.stop_reason or ''} "
+              f"rounds {t.rounds} sim_time {t.sim_time:.3f} final acc "
+              f"{t.final_acc:.4f} evals {len(t.acc)} wall {t.wall_s:.3f} s "
+              f"stats {json.dumps(t.stats)}", flush=True)
+        check(t.params_finite or t.status == "stopped",
+              f"(o) {t.arm.name}: params not finite")
+        check(0.0 <= t.final_acc <= 1.0, f"(o) {t.arm.name}: final acc "
+                                         f"{t.final_acc}")
+        check(t.host_materializations == 0 or "immediate" in t.arm.schedule,
+              f"(o) {t.arm.name}: host materializations")
+    # arms that share the seed see the same event timeline: each schedule's
+    # two strategies evaluate at the same simulated times (up to the
+    # earlier stop, whose final forced eval is left out)
+    for sched in ("immediate", "buffered(8)"):
+        a, b = [t for t in trials if t.arm.schedule == sched]
+        k = min(len(a.times) - (a.status == "stopped"),
+                len(b.times) - (b.status == "stopped"))
+        check(k >= 2 and a.times[:k] == b.times[:k],
+              f"(o) {sched}: eval times differ between strategies "
+              f"({a.times} / {b.times})")
+        if a.status == b.status == "completed":
+            check(a.sim_time == b.sim_time and a.rounds == b.rounds,
+                  f"(o) {sched}: run ends differ")
+    check(launches["apply_scaled"] > 0, "(o) apply_scaled not launched")
+    check(launches["apply_rows"] == stacked["planned"] > 0,
+          f"(o) apply_rows launched {launches['apply_rows']} times, "
+          f"{stacked['planned']} planned")
+
+    def exploding(arm):
+        raise SmokeFailure(f"(o) resumed arm {arm.name} re-executed")
+    again = TuneRunner(exploding, journal=str(journal),
+                       stop_rule=default_rules(),
+                       device=device).run_sweep(arms)
+    check(all(t.resumed for t in again)
+          and [t.key for t in again] == [t.key for t in trials],
+          "(o) the second sweep did not skip every arm")
+    print(f"tune (o) sweep of {len(arms)} arms: wall {wall:.3f} s, "
+          f"{sum(t.status == 'stopped' for t in trials)} stopped, launches "
+          f"{json.dumps(launches)}; resumed sweep skipped all "
+          f"{len(again)} arms", flush=True)
+
+    # a rule sure to fire: accuracy never exceeds 1, so the second eval is
+    # always short of the first + 2, and the arm stops there, at round
+    # 2 * TUNE_EVAL_EVERY, on the timeline its first run saw
+    from repro_torch.tune import AccPlateau
+    first = trials[0]
+    stop = TuneRunner(lambda arm: prob, stop_rule=AccPlateau(
+        patience=1, min_delta=2.0), device=device).run_arm(arms[0])
+    print(f"tune (o) {stop.arm.name} under AccPlateau(1, 2.0): "
+          f"{stop.status} at round {stop.rounds}, sim_time "
+          f"{stop.sim_time:.3f}: {stop.stop_reason}", flush=True)
+    check(stop.status == "stopped" and (stop.stop_reason or "").startswith(
+        "acc_plateau: best of last 1 evals")
+        and stop.rounds == 2 * TUNE_EVAL_EVERY,
+        f"(o) the sure-fire rule: {stop.status} at round {stop.rounds} "
+        f"({stop.stop_reason})")
+    check(len(first.times) >= 2 and stop.times == first.times[:2]
+          and stop.sim_time == first.times[1],
+          f"(o) the stopped arm's evals {stop.times} are not the first two "
+          f"of its full run {first.times}")
+    return launches
+
+
+def event_source_phase():
+    """(p): the seconds the heap and the EventStream take to give the
+    first event and the first EVENT_COUNT events, at EVENT_NS clients,
+    under FLRun's default DelayModel and under the scale row's churn.
+    Host work only: the two must give the same events, and the phase
+    reports the fewest clients from which the stream is the faster."""
+    import itertools
+    from repro_torch.fl import DelayModel
+    from repro_torch.fl.scenario.sched import EventStream, heap_events
+    models = {"DelayModel": lambda n: DelayModel(n, seed=0),
+              "scale row churn": lambda n: scale_spec(n).build()}
+    out = {}
+    for label, make in models.items():
+        rows = []
+        for n in EVENT_NS:
+            row, events = {"n": n}, {}
+            for src in ("heap", "stream"):
+                model = make(n)
+                t0 = time.perf_counter()
+                gen = heap_events(model, n) if src == "heap" \
+                    else EventStream(model).events()
+                first = next(gen)
+                t1 = time.perf_counter()
+                events[src] = [first] + list(
+                    itertools.islice(gen, EVENT_COUNT - 1))
+                t2 = time.perf_counter()
+                row[f"{src}_first_s"] = t1 - t0
+                row[f"{src}_s"] = t2 - t0
+                row[f"{src}_events_per_s"] = (EVENT_COUNT - 1) / (t2 - t1)
+            check(events["heap"] == events["stream"],
+                  f"(p) {label} n={n}: the heap and the stream differ")
+            row["auto"] = "device" if n >= 4096 else "heap"
+            rows.append(row)
+            print(f"events (p) {label}: {json.dumps(row)}", flush=True)
+        faster = [r["n"] for r in rows if r["stream_s"] < r["heap_s"]]
+        out[label] = min(faster) if faster else None
+        print(f"events (p) {label}: {EVENT_COUNT} events, the stream is "
+              f"the faster from n={out[label]} (of {list(EVENT_NS)}); "
+              f"auto switches at 4096", flush=True)
+    return out
+
+
 def run_phases(torch):
     """Every phase in order, on the card; returns the card's line and
     the ``kernels`` list.  Raises SmokeFailure at the first failed
@@ -2322,6 +2800,10 @@ def run_phases(torch):
     torch.cuda.empty_cache()
     lm_cpu_parity(torch, "zamba2-1.2b", 6, "(k)", subset=ZAMBA_SUBSET)
     base_launches = baselines_phase(torch, setup)
+    scenario_launches = {"(m)": scale_phase(torch),
+                         "(n)": churn_phase(torch, setup),
+                         "(o)": tune_phase(torch, setup)}
+    event_source_phase()
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -2373,6 +2855,9 @@ def run_phases(torch):
                 for k, v in zprefill.items()}
         elif name not in LOCAL_STEPS:
             entry["launches_fig2_baselines"] = base_launches.get(name, 0)
+            entry["launches_scenario"] = {
+                label: counts.get(name, 0)
+                for label, counts in scenario_launches.items()}
             entry["launches_serving"] = serve_launches.get(name, 0)
             entry["launches_lm_window_apply"] = {
                 label: sum(v["window_apply_launches"] for v in runs.values()

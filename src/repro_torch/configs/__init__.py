@@ -21,19 +21,19 @@ from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 _REGISTRY: Dict[str, ArchConfig] = {c.arch_id: c for c in (_mamba2,
                                                            _zamba2)}
 
-_ATTN = ("ROADMAP.md Queue 1 item 3: the dense slice (models/lm.py)")
+_ATTN = ("ROADMAP.md Queue 1, LLM side: the dense slice (models/lm.py)")
 # the reference's other architectures, by the family slice that brings them
 _NOT_PORTED: Dict[str, str] = {
     "codeqwen1.5-7b": _ATTN,
     "gemma2-2b": _ATTN,
     "minitron-8b": _ATTN,
     "qwen1.5-110b": _ATTN,
-    "deepseek-v3-671b": "ROADMAP.md Queue 1 item 3: the moe slice "
+    "deepseek-v3-671b": "ROADMAP.md Queue 1, LLM side: the moe slice "
                         "(models/moe.py, MLA attention)",
-    "granite-moe-1b-a400m": "ROADMAP.md Queue 1 item 3: the moe slice "
+    "granite-moe-1b-a400m": "ROADMAP.md Queue 1, LLM side: the moe slice "
                             "(models/moe.py)",
     "internvl2-76b": _ATTN + " and its vision stub",
-    "whisper-large-v3": "ROADMAP.md Queue 1 item 3: the encdec slice "
+    "whisper-large-v3": "ROADMAP.md Queue 1, LLM side: the encdec slice "
                         "(models/encdec.py)",
 }
 

@@ -15,17 +15,15 @@
     :class:`DelayModel` timeline.
 
 The event timeline is numpy and Python (the heap of ``(t, client, kind)``
-events, ``FLRun.rng`` batch draws), so it is the reference's to the bit.
-
-Still to port (ROADMAP Queue 1): the device scheduler
-(``scheduler="device"``) and the scenario engine's ``ChurnModel``
-corruption.
+events or the vectorized :class:`repro_torch.fl.scenario.EventStream`,
+``FLRun.rng`` batch draws), so it is the reference's to the bit.  A
+:class:`repro_torch.fl.scenario.ChurnModel` with adversaries corrupts the
+cohort's bank rows on the device right after the cohort call.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import heapq
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,7 +33,7 @@ from torch.func import grad
 from repro_torch.core import (PersAFLConfig, admission_weights,
                               apply_buffered_rows, apply_update,
                               client_update, init_server_state, mask_rows,
-                              robust_flush_weights, solve_prox,
+                              robust_flush_weights, scale_rows, solve_prox,
                               split_batches_for_option)
 from repro_torch.core.server import staleness_stats
 from repro_torch.core.subset import SubsetSpec, merge_subset
@@ -43,6 +41,7 @@ from repro_torch.data.federated import sample_batches
 from repro_torch.device import resolve_device
 from repro_torch.fl.algorithms import fedprox_update, scaffold_update
 from repro_torch.fl.engine import CohortEngine, DeltaBank
+from repro_torch.fl.scenario.sched import EventStream, heap_events
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -518,6 +517,12 @@ class FLRun:
     call right before the next server apply, so every delta is computed on
     the snapshot the per-event path would have used.  ``vectorized=False``
     keeps the per-event sequential dispatch.
+
+    ``scheduler`` picks the event source of the immediate and buffered
+    schedules: ``"heap"`` (per-event heap), ``"device"`` (the vectorized
+    :class:`repro_torch.fl.scenario.EventStream`, bit-equal to the heap) or
+    ``"auto"`` (the stream from 4096 clients up); ``sync_barrier`` ignores
+    it.
     """
 
     def __init__(self, *, clients: List, loss_fn: Callable, init_params,
@@ -529,10 +534,6 @@ class FLRun:
         if scheduler not in ("auto", "heap", "device"):
             raise ValueError(f"scheduler must be 'auto', 'heap' or "
                              f"'device', got {scheduler!r}")
-        if scheduler == "device":
-            raise NotImplementedError(
-                "scheduler='device' needs fl/scenario/sched.py, which is not "
-                "ported yet (ROADMAP.md Queue 1); use 'heap' or 'auto'")
         self.device = resolve_device(device)
         self.clients = clients
         self.pcfg = pcfg
@@ -542,8 +543,7 @@ class FLRun:
         self.loss_fn = loss_fn
         self.strategy = resolve_strategy(strategy).bind(pcfg, loss_fn)
         self.schedule = resolve_schedule(schedule)
-        # the heap is the only scheduler until the device one is ported
-        self.scheduler = "heap"
+        self.scheduler = scheduler
         self.state = init_server_state(init_params, self.device)
         self.engine = CohortEngine(self.strategy.pcfg, loss_fn,
                                    vectorized=vectorized,
@@ -555,9 +555,10 @@ class FLRun:
         self._stop = False
         self.final_stats: Optional[Dict] = None
         self.scheduler_stats: Dict = {
-            "scheduler": self.scheduler, "windows": 0, "cohort_fill_sum": 0,
-            "cohort_fill_max": 0, "dropouts": 0, "robust_clipped": 0,
-            "robust_trimmed": 0, "robust_nonfinite": 0}
+            "scheduler": scheduler, "windows": 0, "cohort_fill_sum": 0,
+            "cohort_fill_max": 0, "dropouts": 0, "corrupted_rows": 0,
+            "robust_clipped": 0, "robust_trimmed": 0,
+            "robust_nonfinite": 0}
         self.window_log: List[Dict] = []
         self._window_log_cap = 1024
 
@@ -620,14 +621,19 @@ class FLRun:
                 "fill": int(fill),
                 "tau_mean": float(np.mean(taus)) if taus else 0.0,
                 "tau_max": int(max(taus)) if taus else 0,
-                "dropouts": st["dropouts"], **extra})
+                "dropouts": st["dropouts"],
+                "corrupted_rows": st["corrupted_rows"], **extra})
 
     def _flush(self) -> None:
         """Materialize every pending client update in one cohort call.
 
         Called right before any server apply: params have not changed since
         these clients' downloads completed, so the whole cohort shares one
-        snapshot.  Deltas are recorded as (DeltaBank, row) handles."""
+        snapshot.  Deltas are recorded as (DeltaBank, row) handles.
+
+        Adversarial clients (a ChurnModel with an adversarial population)
+        corrupt their rows here, right after the cohort computes them: one
+        ``scale_rows`` pass over the bank on the device."""
         if not self._pending:
             return
         stateful = self.strategy.stateful
@@ -636,10 +642,20 @@ class FLRun:
             cstate_list=[c for _, _, _, c in self._pending]
             if stateful else None)
         ids = [i for _, i, _, _ in self._pending]
-        if self.delays.corruption_factors(np.asarray(ids)) is not None:
-            raise NotImplementedError(
-                "delta corruption (the scenario engine's ChurnModel) is not "
-                "ported yet (ROADMAP.md Queue 1)")
+        factors = self.delays.corruption_factors(np.asarray(ids)) \
+            if hasattr(self.delays, "corruption_factors") else None
+        if factors is not None and bool(np.any(factors != 1.0)):
+            vec = np.ones(bank.capacity, np.float32)
+            vec[:len(ids)] = factors
+            if bank._stacked is not None or bank._rows is None:
+                bank._stacked = scale_rows(bank.stacked, vec)
+            else:
+                # per-event (vectorized=False) banks hold per-row trees
+                bank._rows = [tree_map(lambda x, f=float(f): x * f, r)
+                              for r, f in zip(bank._rows,
+                                              vec[:len(bank._rows)])]
+            self.scheduler_stats["corrupted_rows"] += \
+                int(np.sum(factors != 1.0))
         for idx, (rid, _, _, _) in enumerate(self._pending):
             self._computed[rid] = (bank, idx)
         if stateful:
@@ -704,38 +720,18 @@ class FLRun:
 
     # -- event-driven core (immediate / buffered schedules) ----------------
 
-    def _heap_events(self):
-        """Per-event heap scheduler as an infinite event generator.
-
-        Yields ``(t, client, kind, dropped, t_up)`` with kind 0 = download
-        complete, 1 = upload complete.  Heap keys are ``(t, client, kind)``,
-        the reference's deterministic total order on events."""
-        heap: List[Tuple[float, int, int]] = []
-        for i in range(len(self.clients)):
-            heapq.heappush(heap,
-                           (self.delays.sample_download(i, 0.0), i, 0))
-        while True:
-            now, i, kind = heapq.heappop(heap)
-            if kind == 0:
-                dropped = self.delays.drops(i)
-                t_up = now + self.delays.sample_upload(i, now)
-                if dropped:
-                    heapq.heappush(
-                        heap,
-                        (t_up + self.delays.sample_download(i, t_up), i, 0))
-                else:
-                    heapq.heappush(heap, (t_up, i, 1))
-                yield now, i, 0, dropped, t_up
-            else:
-                heapq.heappush(
-                    heap,
-                    (now + self.delays.sample_download(i, now), i, 0))
-                yield now, i, 1, False, now
-
     def _run_events(self, max_rounds, eval_every, eval_fn,
                     record_active_every, max_time) -> History:
         hist = History()
         n = len(self.clients)
+        mode = self.scheduler
+        if mode == "auto":
+            # the reference's switch; measured alone, the stream is the
+            # faster source at every n from 30 up (chip_smoke.py (p))
+            mode = "device" if n >= 4096 else "heap"
+        self.scheduler_stats["scheduler"] = mode
+        events = EventStream(self.delays).events() if mode == "device" \
+            else heap_events(self.delays, n)
         now = 0.0
         next_active_t = 0.0
         busy_up = {i: None for i in range(n)}  # upload finish times
@@ -746,7 +742,7 @@ class FLRun:
         self._t = int(self.state.t)             # host-side round mirror
         next_rid = 0
 
-        for now_e, i, kind, dropped, t_up in self._heap_events():
+        for now_e, i, kind, dropped, t_up in events:
             if self._t >= max_rounds:
                 break
             if max_time is not None and now_e > max_time:

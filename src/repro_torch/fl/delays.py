@@ -10,22 +10,44 @@ Every random property here is a *pure function* ``hash01(seed, client,
 counter, tag)`` of a counter-based 32-bit hash — there is no shared
 sequential RNG stream, so client *i*'s delay sequence depends only on
 (seed, i), never on ``n_clients`` or on the order other clients' events
-fire.  The reference's ``ChurnModel`` (device tiers, diurnal availability,
-dropout, adversaries) overrides the ``_speed`` / ``drops_at`` /
-``corruption_factors`` hooks; it is not ported yet.
+fire.  :class:`repro_torch.fl.scenario.ChurnModel` (device tiers, diurnal
+availability, dropout, adversaries) overrides the ``_speed`` / ``drops_at``
+/ ``corruption_factors`` hooks.
+
+:func:`hash_u32_torch` / :func:`hash_u01_torch` are the torch twins the
+device scheduler (:mod:`repro_torch.fl.scenario.sched`) draws with: the same
+bits as the numpy hashes, on the CPU and on CUDA.  PyTorch's ``uint32`` has
+no multiply or shift on every backend, so they run on ``int64`` tensors
+holding values in [0, 2^32): a product wraps in 64 bits and its low 32 bits
+are masked off before the next shift, which is exact.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 # stream tags: independent hash sub-streams per random property
 TAG_DOWN = 1      # per-cycle download jitter
 TAG_UP = 2        # per-cycle upload jitter
 TAG_MEAN = 3      # per-client mean download delay
 TAG_FACTOR = 4    # per-client upload factor
+TAG_DROP = 5      # per-cycle mid-round dropout coin
+TAG_TIER = 6      # per-client device-class tier (ChurnModel)
+TAG_PHASE = 7     # per-client diurnal phase (ChurnModel)
+TAG_ADV = 8       # per-client adversary assignment (ChurnModel)
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _seed_word(seed) -> int:
+    return (int(seed) * 2654435761 + 0x632BE59B) & _MASK32
+
+
+def _tag_word(tag) -> int:
+    return (int(tag) * 0x9E3779B9 + 1) & _MASK32
 
 
 def _mix32(x):
@@ -47,8 +69,8 @@ def hash_u32(seed, client, counter, tag):
     # arrays wrap silently (which is what a hash wants)
     client = np.atleast_1d(np.asarray(client)).astype(np.uint32)
     counter = np.atleast_1d(np.asarray(counter)).astype(np.uint32)
-    s = np.uint32((int(seed) * 2654435761 + 0x632BE59B) & 0xFFFFFFFF)
-    tg = np.uint32((int(tag) * 0x9E3779B9 + 1) & 0xFFFFFFFF)
+    s = np.uint32(_seed_word(seed))
+    tg = np.uint32(_tag_word(tag))
     h = _mix32((client * np.uint32(0x85EBCA77)).astype(np.uint32) ^ s)
     h = _mix32(h ^ (counter * np.uint32(0xC2B2AE3D)).astype(np.uint32))
     h = _mix32(h ^ tg)
@@ -60,6 +82,46 @@ def hash_u01(seed, client, counter, tag):
     float64)."""
     h = hash_u32(seed, client, counter, tag) >> np.uint32(8)
     return h.astype(np.float64) * (2.0 ** -24)
+
+
+def _mix32_torch(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix32` on an int64 tensor of values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def client_word_torch(seed, client: torch.Tensor) -> torch.Tensor:
+    """The counter-free first round of :func:`hash_u32_torch` for
+    ``client`` (an integer tensor); a scheduler computes it once per
+    client and passes it as ``client_word=``."""
+    c = client.to(torch.int64) & _MASK32
+    return _mix32_torch(((c * 0x85EBCA77) & _MASK32) ^ _seed_word(seed))
+
+
+def hash_u32_torch(seed, client, counter, tag, *,
+                   client_word: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """:func:`hash_u32` on integer tensors (broadcast), as int64 values in
+    [0, 2^32): bit-equal to the numpy hash for ids and counters across the
+    whole uint32 range."""
+    h = client_word if client_word is not None \
+        else client_word_torch(seed, client)
+    k = torch.as_tensor(counter, device=h.device).to(torch.int64) & _MASK32
+    h = _mix32_torch(h ^ ((k * 0xC2B2AE3D) & _MASK32))
+    return _mix32_torch(h ^ _tag_word(tag))
+
+
+def hash_u01_torch(seed, client, counter, tag, *,
+                   client_word: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Uniform [0, 1) in float32 from the top 24 bits of
+    :func:`hash_u32_torch`: the value of :func:`hash_u01`, exactly."""
+    h = hash_u32_torch(seed, client, counter, tag,
+                       client_word=client_word) >> 8
+    return h.to(torch.float32) * (2.0 ** -24)
 
 
 @dataclasses.dataclass

@@ -36,7 +36,8 @@ updated states come back on the bank (:meth:`DeltaBank.client_state`, a
 gather on the device).
 
 The per-event sequential path is kept behind ``vectorized=False``.  The
-reference's ``"shard_map"`` cohort comes with the multi-device slice.
+reference's ``"shard_map"`` cohort comes with the multi-device paths
+(ROADMAP.md Queue 1, multi-device paths).
 """
 from __future__ import annotations
 
@@ -163,8 +164,8 @@ class CohortEngine:
         if cohort_impl not in ("vmap", "map"):
             raise ValueError(
                 f"cohort_impl must be 'auto', 'vmap' or 'map', got "
-                f"{cohort_impl!r} (the 'shard_map' cohort comes with the "
-                f"multi-device slice)")
+                f"{cohort_impl!r} (the 'shard_map' cohort and its mean come "
+                f"with ROADMAP.md Queue 1, multi-device paths)")
         self.cohort_impl = cohort_impl
         self.stats: Dict[str, int] = {"cohort_calls": 0, "clients": 0,
                                       "max_cohort": 0, "padding_waste": 0,
@@ -283,6 +284,16 @@ class CohortEngine:
             return self._emit(DeltaBank(
                 rows=[d for d, _ in outs], stats=self.stats,
                 cstate_rows=[c for _, c in outs]))
+        outs = self._cohort(params, batch_list, cstate_list, shared)
+        return self._emit(DeltaBank(
+            stacked=outs[0], k=k, stats=self.stats,
+            cstates=outs[1] if self.stateful else None))
+
+    def _cohort(self, params, batch_list: List,
+                cstate_list: Optional[List], shared) -> List:
+        """The vectorized cohort call: ``[delta stack]``, or ``[delta
+        stack, state stack]`` for a stateful strategy, each ``[bucket,
+        ...]``."""
         stacked, cstacked = self._pad_stack(batch_list, cstate_list)
         # the mapped body returns a tuple of trees: (delta,) or (delta,
         # cstate); the shared state maps with an in-dim of None
@@ -299,6 +310,19 @@ class CohortEngine:
                           for a, d in zip(args, in_dims)))
                     for r in range(tree_leaves(stacked)[0].shape[0])]
             outs = [_stack(list(col)) for col in zip(*rows)]
-        return self._emit(DeltaBank(
-            stacked=outs[0], k=k, stats=self.stats,
-            cstates=outs[1] if self.stateful else None))
+        return outs
+
+    def update_cohort_mean(self, params, batch_list: List):
+        """Cohort deltas reduced to their mean (sync FedAvg-family rounds),
+        bucket padding left out of the reduction."""
+        k = len(batch_list)
+        if k == 0:
+            raise ValueError("cohort mean over an empty batch_list")
+        if self.stateful:
+            raise ValueError("cstate_list must be given exactly when the "
+                             "engine's strategy is stateful")
+        if not self.vectorized:
+            deltas = list(self.update_cohort(params, batch_list))
+            return tree_map(lambda *xs: sum(xs) / k, *deltas)
+        deltas = self._cohort(params, batch_list, None, None)[0]
+        return tree_map(lambda x: torch.mean(x[:k], dim=0), deltas)

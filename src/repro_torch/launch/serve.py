@@ -48,8 +48,9 @@ from repro_torch.models import api
 from repro_torch.tree import tree_map
 
 _TRANSPORT = ("the socket front-end (serving/transport.py) comes with "
-              "ROADMAP.md Queue 1 item 2")
-_MESH = ("the multi-device paths come with ROADMAP.md Queue 1 item 4 "
+              "ROADMAP.md Queue 1, transport")
+_MESH = ("the multi-device paths come with ROADMAP.md Queue 1, "
+         "multi-device paths "
          "(sharding/*, launch/mesh.py)")
 
 

@@ -2,8 +2,8 @@
 one-token serve step.
 
 The reference's train steps (``microbatched``, ``make_train_step``,
-``make_cohort_train_step``) come with the training slice (ROADMAP.md Queue 1
-item 3).  PyTorch runs eagerly, so a step is the plain function the reference
+``make_cohort_train_step``) come with the training slice (ROADMAP.md Queue 1,
+LLM side).  PyTorch runs eagerly, so a step is the plain function the reference
 hands to ``jit``.
 """
 from __future__ import annotations

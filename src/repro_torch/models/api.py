@@ -36,7 +36,7 @@ def _family(cfg: ArchConfig) -> None:
                       f"its family slice ({cfg.family})")
     raise NotImplementedError(
         f"{cfg.arch_id}: family {cfg.family!r} is not ported yet; it comes "
-        f"with {item}, ROADMAP.md Queue 1 item 3")
+        f"with {item}, ROADMAP.md Queue 1, LLM side")
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

@@ -245,9 +245,9 @@ def attn_decode(cfg: ArchConfig, p, x, k_cache, v_cache, pos, *,
 
 
 _ENCDEC = ("cross-attention decode comes with the encdec slice "
-           "(models/encdec.py), ROADMAP.md Queue 1 item 3")
+           "(models/encdec.py), ROADMAP.md Queue 1, LLM side")
 _MLA = ("Multi-head Latent Attention comes with the moe slice "
-        "(deepseek-v3's MLA), ROADMAP.md Queue 1 item 3")
+        "(deepseek-v3's MLA), ROADMAP.md Queue 1, LLM side")
 
 
 def cross_attn_decode(cfg: ArchConfig, p, x, enc_k, enc_v):

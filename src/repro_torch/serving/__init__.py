@@ -29,8 +29,13 @@ _TRANSPORT = ("AsyncTransportClient", "TransportBusy", "TransportClient",
 
 
 def __getattr__(name: str):
+    if name == "personalize_delta_fn":
+        # removed; the batcher module raises the full breadcrumb
+        from repro_torch.serving import batcher
+        return getattr(batcher, name)
     if name in _TRANSPORT:
         raise NotImplementedError(
             f"repro_torch.serving.{name} is not ported yet: it comes with "
-            f"the port of serving/transport.py (ROADMAP.md Queue 1)")
+            f"the port of serving/transport.py (ROADMAP.md Queue 1, "
+            f"transport)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

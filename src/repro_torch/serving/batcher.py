@@ -38,6 +38,15 @@ def personalize_strategy(pcfg: PersAFLConfig, loss_fn: Callable, mode: str,
                      personal_subset=personal_subset).bind(pcfg, loss_fn)
 
 
+def __getattr__(name: str):
+    if name == "personalize_delta_fn":
+        raise ImportError(
+            "repro_torch.serving.batcher.personalize_delta_fn was removed; "
+            "use repro_torch.fl.api.strategy('personalize', mode=...) / "
+            "personalize_strategy instead.")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 @dataclasses.dataclass
 class Ticket:
     """Submit/poll handle for one personalization request.

@@ -59,7 +59,8 @@ from repro_torch.serving.batcher import (MODES, MicroBatcher, Ticket,
                                          personalize_strategy)
 from repro_torch.tree import tree_leaves, tree_map
 
-_MULTI_DEVICE = "the port's multi-device slice (ROADMAP.md Queue 1)"
+_MULTI_DEVICE = ("the port's multi-device slice (ROADMAP.md Queue 1, "
+                 "multi-device paths)")
 
 
 def _index(rows, device) -> torch.Tensor:

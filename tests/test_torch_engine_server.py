@@ -243,3 +243,33 @@ def test_cohort_bank_and_stats_match_reference(option, impl):
         if key == "host_materializations" and impl == "per-event":
             expect = 0       # per-event banks hold host rows from the start
         assert engine.stats[key] == expect, key
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mean(option, k):
+    batch_list = _jax_bank(option)[0][:k]
+    engine = JEngine(JConfig(option=option, **PCFG),
+                     lambda p, b: j_cnn_loss(J_MNIST, p, b, train=False),
+                     cohort_impl="map")
+    mean = engine.update_cohort_mean(
+        jax.tree.map(jax.numpy.asarray, _params()), batch_list)
+    return batch_list, jax.tree.map(np.asarray, mean)
+
+
+@pytest.mark.parametrize("k", [1, K_CLIENTS])
+@pytest.mark.parametrize("impl", ["vmap", "map", "per-event"])
+def test_cohort_mean_matches_reference(k, impl):
+    """``update_cohort_mean`` against the reference's: at k = 3 the bucket
+    pads a row, which must stay out of the mean."""
+    batch_list, want = _jax_mean("A", k)
+    engine = CohortEngine(
+        PersAFLConfig(option="A", **PCFG),
+        lambda p, b: cnn_loss(MNIST_CNN, p, b, train=False),
+        vectorized=impl != "per-event",
+        cohort_impl="map" if impl == "per-event" else impl, device="cpu")
+    got = engine.update_cohort_mean(params_from_jax(_params(), "cpu"),
+                                    batch_list)
+    _assert_tree_close(got, want, atol=BANK_ATOL, rtol=BANK_RTOL)
+    assert engine.stats["clients"] == k
+    with pytest.raises(ValueError):
+        engine.update_cohort_mean(params_from_jax(_params(), "cpu"), [])

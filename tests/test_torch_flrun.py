@@ -131,9 +131,9 @@ def test_flrun_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(scheduler="device"), NotImplementedError),
     (dict(strategy="nope"), ValueError),
     (dict(schedule="bogus"), ValueError),
+    (dict(scheduler="gpu"), ValueError),
 ])
 def test_flrun_refuses_what_is_not_ported(kw, err):
     clients = make_federated_dataset("mnist", n_clients=2,

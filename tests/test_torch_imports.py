@@ -58,5 +58,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.models.attention",
                  "repro_torch.launch.steps", "repro_torch.launch.serve",
-                 "repro_torch.fl.algorithms"):
+                 "repro_torch.fl.algorithms", "repro_torch.fl.simulator",
+                 "repro_torch.fl.scenario", "repro_torch.fl.scenario.spec",
+                 "repro_torch.fl.scenario.churn",
+                 "repro_torch.fl.scenario.sched", "repro_torch.tune",
+                 "repro_torch.tune.space", "repro_torch.tune.stop",
+                 "repro_torch.tune.runner", "repro_torch.tune.report"):
         assert name in out["modules"]

@@ -231,6 +231,18 @@ def test_server_refuses_multi_device_and_transport():
         serving.bogus  # noqa: B018
 
 
+def test_removed_personalize_delta_fn_names_its_replacement():
+    import repro_torch.serving as serving
+    from repro_torch.serving import batcher
+    for mod in (serving, batcher):
+        with pytest.raises(ImportError,
+                           match=r"strategy\('personalize', mode=\.\.\.\) "
+                                 r"/ personalize_strategy"):
+            mod.personalize_delta_fn  # noqa: B018
+    with pytest.raises(AttributeError):
+        batcher.bogus  # noqa: B018
+
+
 def test_server_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -170,6 +170,34 @@ Phases; any failure exits non-zero and prints no result line:
      each, the same events tuple for tuple; the seconds to the first event
      and to the last, and where ``scheduler="auto"`` switches.
 
+ 10. transport -- (q1) the ``serve_transport`` row of
+     ``benchmarks/run.py:426-540`` at its size (XPORT: d = 256, 10
+     classes, 32 rows a request, 32 connections, mode C, λ = 20, K = 200,
+     η_in = 0.01, β = 0.5, ``max_pending`` 32, ``flush_ms`` 100,
+     ``max_inflight`` 128): the port's ``TransportServer`` in front of
+     ``PersonalizationServer(device="cuda")`` here, the load from a second
+     OS process (LOADGEN: the port's ``AsyncTransportClient``s, batches
+     from ``RandomState(0)``), 1 warm-up window and 8 × 3 timed ones with
+     an ADVANCE after each, and the same windows in-process on a second
+     server; counts zeroed just before the socket drive and read just
+     after.  Checks: every POLL done, one cohort call and one
+     ``apply_rows`` launch per window, 0 host materializations, the first
+     window's heads over the wire bit-equal to the in-process server's
+     (cuDNN deterministic), the same window on the CPU within PARAM_ATOL,
+     and an int8 ``codec_ok`` head body from an int8-banking server at the
+     quant bench's 256 × 256 ≥ WIRE_RATIO smaller than an fp32 one.
+     Reports req/s over the socket and in-process, their ratio beside the
+     row's 1.5 (not gated), p50/p99 submit→head and body bytes.  (q2)
+     ``python -m repro_torch.launch.serve --arch mamba2-130m --listen 0
+     --personal-subset embed/unembed --delta-dtype int8`` as a child on
+     the card for LISTEN_SECONDS, driven from here by 4 users (one
+     ``codec="int8"``): 4 heads done, the subset stamped, ``codec`` int8
+     only for that client, HEAD's body equal to POLL's, one ADVANCE,
+     STATS with one cohort call and 0 host materializations, the child's
+     own counts (144 ``ssd_fwd``, 1 ``apply_rows_q``), and the child
+     exiting 0 within LISTEN_SECONDS + 10 s of its line with a connection
+     still open.
+
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -180,6 +208,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2736,6 +2765,429 @@ def event_source_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase (q): the socket transport in front of the server on the card
+# ---------------------------------------------------------------------------
+
+# (q1): the serve_transport row of benchmarks/run.py:444-468 at its size
+XPORT = dict(d=256, classes=10, rows=32, conns=32, windows=8, reps=3)
+XPORT_PCFG = dict(option="C", lam=20.0, inner_steps=200, inner_eta=0.01,
+                  beta=0.5)
+XPORT_FLUSH_MS, XPORT_MAX_INFLIGHT = 100.0, 128
+XPORT_RATIO = 1.5                # the row's limit: reported, not gated here
+# the quant bench's wire gate (benchmarks/run.py:806-900): 256 classes, an
+# int8 head body >= 3.5x smaller than an fp32 one
+WIRE_CLASSES, WIRE_RATIO = 256, 3.5
+WIRE_PCFG = dict(option="C", lam=20.0, inner_steps=5, inner_eta=0.05,
+                 beta=0.5)
+# (q2): mamba2-130m over the socket; its fp32 head (~670 MB) exceeds
+# MAX_FRAME_BYTES, embed/unembed (154,460,160 bytes) does not
+LISTEN_SUBSET, LISTEN_USERS, LISTEN_SECONDS = "embed/unembed", 4, 30.0
+LISTEN_START_S = 180.0           # the child's imports and init, at most
+
+# the second OS process of (q1): the port's AsyncTransportClients, one
+# connection a user, one request a user a window, an ADVANCE after each
+# window (benchmarks/transport_loadgen.py); batches from RandomState(0) as
+# there.  Prints one JSON line and saves the first window's heads.
+LOADGEN = r"""
+import asyncio, json, sys, time
+import numpy as np
+from repro_torch.serving.transport import AsyncTransportClient
+port, conns, windows, reps, d, rows, classes = map(int, sys.argv[1:8])
+out = sys.argv[8]
+rng = np.random.RandomState(0)
+batches = [{"images": rng.randn(rows, d).astype(np.float32),
+            "labels": rng.randint(0, classes, rows).astype(np.int32)}
+           for _ in range(conns)]
+
+async def drive():
+    clients = [await AsyncTransportClient("127.0.0.1", port).connect()
+               for _ in range(conns)]
+    done = [0]
+
+    async def one(u, lat, keep):
+        t0 = time.perf_counter()
+        tid = await clients[u].submit(f"user{u}", batches[u])
+        head = await clients[u].poll(tid, wait_ms=120_000)
+        if head is None:
+            raise SystemExit(f"user{u}: poll timed out")
+        lat.append(time.perf_counter() - t0)
+        done[0] += 1
+        if keep is not None:
+            keep.update({f"user{u}/{k}": v for k, v in head.items()})
+
+    async def window(lat, keep=None):
+        await asyncio.gather(*(one(u, lat, keep) for u in range(conns)))
+        await clients[0].advance()
+
+    first = {}
+    await window([], first)
+    np.savez(out, **first)
+    best, lat = float("inf"), []
+    for _ in range(reps):
+        lat_rep = []
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            await window(lat_rep)
+        wall = time.perf_counter() - t0
+        if wall < best:
+            best, lat = wall, lat_rep
+    for c in clients:
+        await c.close()
+    return {"wall_s": best, "latencies_s": lat, "heads_done": done[0]}
+
+print(json.dumps(asyncio.run(asyncio.wait_for(drive(), 600))), flush=True)
+"""
+
+
+def linear_loss(torch):
+    def loss(p, b):
+        logp = torch.log_softmax(b["images"] @ p["w"] + p["b"], -1)
+        return -torch.mean(logp.gather(-1, b["labels"].long()[..., None]))
+    return loss
+
+
+def xport_batches(n, rows, d, classes, seed=0):
+    rng = np.random.RandomState(seed)
+    return [{"images": rng.randn(rows, d).astype(np.float32),
+             "labels": rng.randint(0, classes, rows).astype(np.int32)}
+            for _ in range(n)]
+
+
+def xport_window(torch, srv, uids, batches, device):
+    """One window in-process: every user submits, the queue is flushed,
+    every head is gathered, the window closes.  Returns the heads."""
+    tickets = [srv.submit(u, b) for u, b in zip(uids, batches)]
+    srv.flush()
+    heads = [srv.poll(t) for t in tickets]
+    sync(torch, device)
+    srv.advance_window()
+    return heads
+
+
+def transport_phase(torch, device="cuda"):
+    """(q1): the serve_transport row: a TransportServer in front of
+    ``PersonalizationServer(device=device)`` driven by XPORT["conns"]
+    connections from a second OS process, 1 warm-up window and
+    XPORT["windows"] x XPORT["reps"] timed ones, an ADVANCE after each;
+    the same windows in-process on a second server; the first window on
+    the CPU; then the int8 wire.  Counts zeroed just before the socket
+    drive and read just after.  Returns the ``apply_rows`` launches."""
+    import asyncio
+
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.serving import PersonalizationServer
+    from repro_torch.serving.transport import (AsyncTransportClient,
+                                               TransportServer, encode_pytree)
+    from repro_torch.tree import tree_leaves
+    x = XPORT
+    d, classes, conns = x["d"], x["classes"], x["conns"]
+    loss = linear_loss(torch)
+    pcfg = PersAFLConfig(**XPORT_PCFG)
+    params = {"w": np.zeros((d, classes), np.float32),
+              "b": np.zeros((classes,), np.float32)}
+    batches = xport_batches(conns, x["rows"], d, classes)
+    uids = [f"user{u}" for u in range(conns)]
+    n_windows = 1 + x["windows"] * x["reps"]
+
+    def make(dev):
+        return PersonalizationServer(params, loss, pcfg, modes=("C",),
+                                     max_pending=conns, device=dev)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # in-process: the serve row's path at the same users and windows
+        srv = make(device)
+        first = [{k: v.cpu() for k, v in h.items()} for h in
+                 xport_window(torch, srv, uids, batches, device)]
+        t_inproc = float("inf")
+        for _ in range(x["reps"]):
+            t0 = time.perf_counter()
+            for _ in range(x["windows"]):
+                xport_window(torch, srv, uids, batches, device)
+            t_inproc = min(t_inproc, time.perf_counter() - t0)
+        # where an in-process window's time goes
+        profile = profile_shares(torch, lambda: xport_window(
+            torch, srv, uids, batches, device)) \
+            if torch.device(device).type == "cuda" else None
+        # the first window on the CPU (fp32 banking: no code steps, so
+        # serving_cpu_parity's tolerance is PARAM_ATOL)
+        t0 = time.perf_counter()
+        cpu = xport_window(torch, make("cpu"), uids, batches, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        cpu_diff = max(float((a[k] - b[k]).abs().max())
+                       for a, b in zip(first, cpu) for k in a)
+
+        async def drive(out_npz):
+            psrv = make(device)
+            ts = await TransportServer(psrv, flush_ms=XPORT_FLUSH_MS,
+                                       max_inflight=XPORT_MAX_INFLIGHT
+                                       ).start()
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-c", LOADGEN, str(ts.port), str(conns),
+                str(x["windows"]), str(x["reps"]), str(d), str(x["rows"]),
+                str(classes), out_npz, env=env,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            try:
+                out, err = await asyncio.wait_for(proc.communicate(), 600)
+            finally:
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+                await ts.stop()
+            check(proc.returncode == 0, f"(q1) loadgen exited "
+                  f"{proc.returncode}: {err.decode()[-2000:]}")
+            res = json.loads(out.decode().strip().splitlines()[-1])
+            return res, psrv.stats, dict(ts.stats), psrv.ring.stats
+
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = str(Path(tmp) / "first.npz")
+            K.reset_launches()
+            res, st, tst, rst = asyncio.run(drive(npz))
+            sync(torch, device)
+            launches = K.LAUNCHES["apply_rows"]
+            with np.load(npz) as z:
+                wire = {k: z[k] for k in z.files}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bitwise = all(np.array_equal(wire[f"{u}/{k}"], h[k].numpy())
+                  for u, h in zip(uids, first) for k in h)
+    n_req = conns * x["windows"]
+    lat_ms = np.asarray(res["latencies_s"]) * 1e3
+    head_bytes = len(encode_pytree(first[0]))
+    row = {"conns": conns, "windows": x["windows"], "reps": x["reps"],
+           "wall_in_process_s": t_inproc, "wall_transport_s": res["wall_s"],
+           "req_per_s_in_process": n_req / t_inproc,
+           "req_per_s_transport": n_req / res["wall_s"],
+           "ratio_vs_in_process": res["wall_s"] / t_inproc,
+           "ratio_limit": XPORT_RATIO,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "head_body_bytes": head_bytes,
+           "heads_done": res["heads_done"],
+           "cohort_calls": st["cohort_calls"],
+           "windows_applied": rst["windows"],
+           "host_materializations": st["host_materializations"],
+           "apply_rows_launches": launches, "transport": tst,
+           "first_window_bitwise": bitwise,
+           "cpu_first_window_max_abs_diff": cpu_diff,
+           "cpu_first_window_wall_s": cpu_wall,
+           "profile_in_process_window": profile}
+    print(f"transport (q1) {json.dumps(row)}", flush=True)
+    check(res["heads_done"] == conns * n_windows,
+          f"(q1) {res['heads_done']} heads done of {conns * n_windows}")
+    check(st["cohort_calls"] == n_windows,
+          f"(q1) {st['cohort_calls']} cohort calls for {n_windows} windows "
+          f"(the {conns} submits of a window did not coalesce)")
+    check(st["host_materializations"] == 0,
+          f"(q1) {st['host_materializations']} host materializations")
+    on_card = torch.device(device).type == "cuda"
+    check(rst["windows"] == n_windows
+          and (launches == n_windows or not on_card),
+          f"(q1) apply_rows launched {launches} times for "
+          f"{rst['windows']} window applies, expected {n_windows}")
+    check(bitwise, "(q1) the first window's heads over the wire differ "
+                   "from the in-process server's")
+    check(cpu_diff <= PARAM_ATOL, f"(q1) card vs CPU heads differ by "
+                                  f"{cpu_diff} > {PARAM_ATOL}")
+
+    # the int8 wire: an int8-banking server at the quant bench's size
+    wparams = {"w": np.zeros((d, WIRE_CLASSES), np.float32),
+               "b": np.zeros((WIRE_CLASSES,), np.float32)}
+    wbatch = xport_batches(2, x["rows"], d, WIRE_CLASSES)
+
+    async def wire_sizes():
+        psrv = PersonalizationServer(wparams, loss,
+                                     PersAFLConfig(**WIRE_PCFG),
+                                     modes=("C",), max_pending=conns,
+                                     delta_dtype="int8", device=device)
+        ts = await TransportServer(psrv, flush_ms=XPORT_FLUSH_MS).start()
+        cq = await AsyncTransportClient("127.0.0.1", ts.port,
+                                        codec="int8").connect()
+        cf = await AsyncTransportClient("127.0.0.1", ts.port).connect()
+        try:
+            tq = await cq.submit("uq", wbatch[0])
+            tf = await cf.submit("uf", wbatch[1])
+            await cf.flush()
+            hq = await cq.poll(tq, wait_ms=30_000)
+            hf = await cf.poll(tf, wait_ms=30_000)
+            codecs = (cq.last_codec, cf.last_codec)
+            sizes = {}
+            for codec_ok in (True, False):
+                h, body = await cq._rpc({"op": "HEAD", "user": "uq",
+                                         "subset_ok": True,
+                                         "codec_ok": codec_ok})
+                sizes[h["codec"]] = len(body)
+            stats = await cq.stats()
+        finally:
+            await cq.close()
+            await cf.close()
+            await ts.stop()
+        return hq, hf, codecs, sizes, stats
+
+    hq, hf, codecs, sizes, wst = asyncio.run(wire_sizes())
+    submit = {c: len(encode_pytree(wbatch[0], codec=c))
+              for c in ("fp32", "int8")}
+    wire_row = {"head_body_bytes": sizes,
+                "head_ratio": sizes["fp32"] / sizes["int8"],
+                "submit_body_bytes": submit,
+                "submit_ratio": submit["fp32"] / submit["int8"],
+                "codecs": codecs,
+                "host_materializations": wst["host_materializations"]}
+    print(f"transport (q1) int8 wire at {d} x {WIRE_CLASSES}: "
+          f"{json.dumps(wire_row)}", flush=True)
+    check(codecs == ("int8", "fp32"), f"(q1) codecs {codecs}")
+    check(all(np.isfinite(v).all() for v in tree_leaves(hq))
+          and all(np.isfinite(v).all() for v in tree_leaves(hf)),
+          "(q1) int8 server heads not finite")
+    check(wire_row["head_ratio"] >= WIRE_RATIO,
+          f"(q1) int8 head body only {wire_row['head_ratio']:.3f}x smaller "
+          f"than fp32 (< {WIRE_RATIO})")
+    check(wst["host_materializations"] == 0,
+          "(q1) int8 server: host materializations")
+    row["wire"] = wire_row
+    return launches, row
+
+
+def listen_phase(torch, device="cuda", smoke=False):
+    """(q2): ``launch/serve.py --arch mamba2-130m --listen 0`` as a child on
+    ``device`` with the embed/unembed subset and int8 banking, serving
+    LISTEN_SECONDS; this process is the client: LISTEN_USERS users submit
+    (the first with ``codec="int8"``), POLL, HEAD, one ADVANCE, STATS, and
+    one connection is left open when the child's serving time ends.
+    Returns the child's kernel launches and the phase's numbers."""
+    import asyncio
+    import re
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import _personalize_len, _user_batch
+    from repro_torch.serving.transport import (AsyncTransportClient,
+                                               decode_pytree)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("mamba2-130m")
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    plen = _personalize_len(cfg, LM_PROMPT)
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "mamba2-130m", "--listen", "0", "--personal-subset",
+            LISTEN_SUBSET, "--delta-dtype", "int8", "--serve-seconds",
+            str(LISTEN_SECONDS), "--requests", str(LISTEN_USERS),
+            "--device", str(device)]
+    if smoke:
+        argv.append("--smoke")
+
+    async def go():
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t_start = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            *argv, env=env, cwd=str(ROOT), stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+        clients = []
+        try:
+            line = (await asyncio.wait_for(proc.stdout.readline(),
+                                           LISTEN_START_S)).decode()
+            t_line = time.perf_counter()
+            m = re.match(r"serving personalization on 127\.0\.0\.1:(\d+) "
+                         r"\(wire protocol v1", line)
+            check(m is not None, f"(q2) the child printed {line!r}")
+            port = int(m.group(1))
+            clients = [await AsyncTransportClient(
+                "127.0.0.1", port,
+                codec="int8" if u == 0 else "fp32").connect()
+                for u in range(LISTEN_USERS)]
+
+            async def one(u):
+                t0 = time.perf_counter()
+                tid = await clients[u].submit(
+                    f"user{u}", _user_batch(cfg, u, plen))
+                head = await clients[u].poll(tid, wait_ms=60_000)
+                return head, time.perf_counter() - t0
+
+            polled = await asyncio.gather(*(one(u)
+                                            for u in range(LISTEN_USERS)))
+            users = []
+            for u, (head, wall) in enumerate(polled):
+                c = clients[u]
+                check(head is not None, f"(q2) user{u}: poll not done")
+                h, body = await c._rpc({"op": "HEAD", "user": f"user{u}",
+                                        "subset_ok": True,
+                                        "codec_ok": c.codec == "int8"})
+                again = decode_pytree(body)
+                same = all(np.array_equal(a, b) for a, b in
+                           zip(tree_leaves(head), tree_leaves(again)))
+                users.append({"user": u, "codec": c.last_codec,
+                              "head_codec": h["codec"],
+                              "subset": c.last_subset,
+                              "submit_to_head_s": wall,
+                              "body_bytes": len(body),
+                              "head_equals_poll": same,
+                              "finite": all(bool(np.isfinite(x).all())
+                                            for x in tree_leaves(head))})
+            window = await clients[0].advance()
+            stats = await clients[0].stats()
+            t_work = time.perf_counter() - t_line
+            # every client but one closes; the last stays connected
+            for c in clients[:-1]:
+                await c.close()
+            remaining = LISTEN_SECONDS + 10 - (time.perf_counter() - t_line)
+            out, err = await asyncio.wait_for(proc.communicate(),
+                                              max(remaining, 1.0))
+            took = time.perf_counter() - t_line
+            return (users, window, stats, proc.returncode, out.decode(),
+                    err.decode(), took, t_work, t_line - t_start)
+        finally:
+            for c in clients:
+                await c.close()
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+
+    users, window, stats, rc, out, err, took, t_work, t_boot = \
+        asyncio.run(go())
+    m = re.search(r"launches (\{.*\})", out)
+    launches = json.loads(m.group(1)) if m else {}
+    fp32_bytes = [u["body_bytes"] for u in users if u["codec"] == "fp32"]
+    int8_bytes = [u["body_bytes"] for u in users if u["codec"] == "int8"]
+    row = {"users": users, "window": window,
+           "cohort_calls": stats["cohort_calls"],
+           "host_materializations": stats["host_materializations"],
+           "child_rc": rc, "child_boot_s": t_boot,
+           "client_work_s": t_work, "child_exit_after_line_s": took,
+           "serve_seconds": LISTEN_SECONDS, "child_launches": launches,
+           "body_bytes_fp32": fp32_bytes, "body_bytes_int8": int8_bytes}
+    print(f"transport (q2) mamba2-130m --listen: {json.dumps(row)}",
+          flush=True)
+    if rc != 0:
+        print(err[-4000:], file=sys.stderr, flush=True)
+    check(rc == 0, f"(q2) the serve child exited {rc}")
+    check(took <= LISTEN_SECONDS + 10,
+          f"(q2) the child exited {took:.2f} s after its line, with a "
+          f"connection open (limit {LISTEN_SECONDS + 10})")
+    check(len(users) == LISTEN_USERS and all(
+        u["finite"] and u["head_equals_poll"] for u in users),
+          "(q2) a head not finite, or HEAD differs from POLL")
+    check(all(u["subset"] == [LISTEN_SUBSET] for u in users),
+          "(q2) the subset descriptor is not stamped")
+    check([u["codec"] for u in users] == ["int8"] + ["fp32"] * (
+        LISTEN_USERS - 1) and all(u["codec"] == u["head_codec"]
+                                  for u in users),
+          f"(q2) codecs {[u['codec'] for u in users]}")
+    check(window == 1 and stats["cohort_calls"] == 1
+          and stats["host_materializations"] == 0,
+          f"(q2) window {window}, stats {stats}")
+    # the cohort's loss evaluations: K prox steps and nu's gradient
+    want = {"ssd_fwd": cfg.n_layers * (LM_INNER_STEPS + 1),
+            "apply_rows_q": 1}
+    if torch.device(device).type == "cuda":
+        check(all(launches.get(k) == v for k, v in want.items()),
+              f"(q2) the child launched {launches}, expected {want}")
+    return launches, row
+
+
 def run_phases(torch):
     """Every phase in order, on the card; returns the card's line and
     the ``kernels`` list.  Raises SmokeFailure at the first failed
@@ -2804,6 +3256,14 @@ def run_phases(torch):
                          "(n)": churn_phase(torch, setup),
                          "(o)": tune_phase(torch, setup)}
     event_source_phase()
+    rows_launches, _ = transport_phase(torch)
+    listen_launches, _ = listen_phase(torch)
+    # the transport path's counts: (q1)'s window applies in this process,
+    # (q2)'s cohort call and window apply in the serve child
+    transport_launches = {"apply_rows": {"(q1)": rows_launches},
+                          "apply_rows_q": {
+                              "(q2)": listen_launches["apply_rows_q"]},
+                          "ssd_fwd": {"(q2)": listen_launches["ssd_fwd"]}}
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -2837,6 +3297,8 @@ def run_phases(torch):
             "shape": main["shape"], "shapes": rows}
         if name in TABLE_KERNELS:
             entry["foreach_ms"] = main.get("foreach_ms")
+        if name in transport_launches:
+            entry["launches_transport"] = transport_launches[name]
         if name == "ssd_fwd":
             entry["design_bytes"] = main["design_bytes"]
             entry["kernels_per_call"] = main["kernels_per_call"]

@@ -21,15 +21,31 @@ stacked per user; decode merges the stacked heads over the one shared
 backbone and vmaps with ``in_dims`` ``None`` on backbone leaves, so backbone
 memory stays O(1) in the user count.
 
+``--listen PORT`` swaps the one-shot decode for the socket front-end: the
+server is wrapped in a :class:`repro_torch.serving.transport.TransportServer`
+(wire protocol v1, the JAX package's) and other processes drive
+personalization over the socket with either package's ``TransportClient``:
+submit a token batch shaped as the loss expects (``{"tokens": int32[1, L],
+"labels": int32[1, L]}``, L a multiple of the SSM chunk, see
+``_user_batch``), poll the head back, fetch it again with HEAD.
+``--flush-ms`` bounds queueing latency, ``--window-ms`` advances the
+aggregation window on a wall clock, ``--max-inflight`` is the backpressure
+bound and ``--serve-seconds`` stops the server (default: until
+interrupted).  It prints ``serving personalization on 127.0.0.1:<port>
+...`` once it listens, and on stopping the connections, frames, host
+materializations and kernel launches of the run:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --listen 7777 --personal-subset embed/unembed --delta-dtype int8
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: ``--listen`` (the socket front-end), ``--model-axis`` (the 2-D mesh)
-and ``--coordinator`` / ``--num-processes`` (multi-process serving).  The
-options that only those paths read (``--flush-ms``, ``--window-ms``,
-``--max-inflight``, ``--serve-seconds``, ``--process-id``) come with them.
+item: ``--model-axis`` (the 2-D mesh) and ``--coordinator`` /
+``--num-processes`` / ``--process-id`` (multi-process serving).
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
 import os
@@ -47,8 +63,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.tree import tree_map
 
-_TRANSPORT = ("the socket front-end (serving/transport.py) comes with "
-              "ROADMAP.md Queue 1, transport")
 _MESH = ("the multi-device paths come with ROADMAP.md Queue 1, "
          "multi-device paths "
          "(sharding/*, launch/mesh.py)")
@@ -178,14 +192,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card; 'cpu' runs on "
                          "the CPU)")
-    # the reference's network and mesh flags, not ported yet
     ap.add_argument("--listen", type=int, default=None, metavar="PORT",
-                    help="not ported yet (socket front-end)")
+                    help="serve personalization over a socket transport "
+                         "on this port (0 = ephemeral) instead of the "
+                         "one-shot decode; implies --personalize")
+    ap.add_argument("--flush-ms", type=float, default=10.0,
+                    help="transport deadline flush: a partial request "
+                         "queue older than this is flushed by timer")
+    ap.add_argument("--window-ms", type=float, default=None,
+                    help="advance the aggregation window on this "
+                         "wall-clock period (default: only on ADVANCE "
+                         "frames)")
+    ap.add_argument("--max-inflight", type=int, default=256,
+                    help="transport backpressure: max open tickets "
+                         "before SUBMIT gets a BUSY frame")
+    ap.add_argument("--serve-seconds", type=float, default=None,
+                    help="with --listen: stop after this many seconds "
+                         "(default: serve until interrupted)")
+    # the reference's mesh and multi-process flags, not ported yet
     ap.add_argument("--model-axis", type=int, default=None, metavar="M",
                     help="not ported yet (2-D mesh)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                     help="not ported yet (multi-process serving)")
     ap.add_argument("--num-processes", type=int, default=None,
+                    help="not ported yet (multi-process serving)")
+    ap.add_argument("--process-id", type=int, default=None,
                     help="not ported yet (multi-process serving)")
     return ap
 
@@ -215,14 +246,62 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _launch_counts() -> dict:
+    """Kernel launches so far in this process, by kernel."""
+    from repro_torch.kernels.flash_attention import kernel as KF
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.ssd import kernel as KS
+    return {"ssd_fwd": KS.LAUNCHES["ssd_fwd"],
+            "flash_attention_fwd": KF.LAUNCHES["flash_attention_fwd"],
+            "apply_rows": K.LAUNCHES["apply_rows"],
+            "apply_rows_q": K.LAUNCHES["apply_rows_q"]}
+
+
+def _serve_transport(args, server) -> None:
+    """Run the socket front-end until --serve-seconds elapse or ^C."""
+    from repro_torch.serving.transport import (PROTOCOL_VERSION,
+                                               TransportServer)
+    ts = TransportServer(server, port=args.listen, flush_ms=args.flush_ms,
+                         window_ms=args.window_ms,
+                         max_inflight=args.max_inflight)
+
+    async def run():
+        await ts.start()
+        print(f"serving personalization on 127.0.0.1:{ts.port} "
+              f"(wire protocol v{PROTOCOL_VERSION}, mode {args.mode}, "
+              f"flush_ms={args.flush_ms}, window_ms={args.window_ms}, "
+              f"max_inflight={args.max_inflight}) on {server.device}",
+              flush=True)
+        try:
+            if args.serve_seconds is not None:
+                await asyncio.sleep(args.serve_seconds)
+            else:
+                await asyncio.Event().wait()
+        finally:
+            await ts.stop()
+            print(f"transport stopped after "
+                  f"{ts.stats['connections']} connections / "
+                  f"{ts.stats['frames']} frames "
+                  f"(host_materializations="
+                  f"{server.stats['host_materializations']}, launches "
+                  f"{json.dumps(_launch_counts())})", flush=True)
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+
+
 def main(argv=None) -> ServeRun:
     args = build_parser().parse_args(argv)
-    if args.listen is not None:
-        raise NotImplementedError(f"--listen: {_TRANSPORT}")
     if args.model_axis is not None:
         raise NotImplementedError(f"--model-axis: {_MESH}")
-    if args.coordinator is not None or args.num_processes is not None:
-        raise NotImplementedError(f"--coordinator/--num-processes: {_MESH}")
+    if args.coordinator is not None or args.num_processes is not None \
+            or args.process_id is not None:
+        raise NotImplementedError(
+            f"--coordinator/--num-processes/--process-id: {_MESH}")
+    if args.listen is not None:
+        args.personalize = True
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -254,6 +333,9 @@ def main(argv=None) -> ServeRun:
                                        delta_dtype=args.delta_dtype,
                                        device=dev)
         run.server = server
+        if args.listen is not None:
+            _serve_transport(args, server)
+            return run
         run.users = [f"user{u}" for u in range(B)]
         run.batches = [_user_batch(cfg, args.seed + u, plen)
                        for u in range(B)]

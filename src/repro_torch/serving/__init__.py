@@ -15,17 +15,17 @@ banking with per-user error feedback, window applies through the
 Parts: :mod:`repro_torch.serving.batcher` (request queue, micro-batcher),
 :mod:`repro_torch.serving.bank` (:class:`DeltaRing`, the ring of retained
 banks and snapshots), :mod:`repro_torch.serving.server`
-(:class:`PersonalizationServer`).  The reference's socket front-end,
-``serving/transport.py``, is not ported yet: its names raise
-``NotImplementedError``.
+(:class:`PersonalizationServer`) and :mod:`repro_torch.serving.transport`
+(the socket front-end, wire protocol v1: :class:`TransportServer` and its
+clients).
 """
 from repro_torch.serving.bank import DeltaRing  # noqa: F401
 from repro_torch.serving.batcher import (MODES, MicroBatcher,  # noqa: F401
                                          Ticket, personalize_strategy)
 from repro_torch.serving.server import PersonalizationServer  # noqa: F401
-
-_TRANSPORT = ("AsyncTransportClient", "TransportBusy", "TransportClient",
-              "TransportError", "TransportServer")
+from repro_torch.serving.transport import (  # noqa: F401
+    AsyncTransportClient, TransportBusy, TransportClient, TransportError,
+    TransportServer)
 
 
 def __getattr__(name: str):
@@ -33,9 +33,4 @@ def __getattr__(name: str):
         # removed; the batcher module raises the full breadcrumb
         from repro_torch.serving import batcher
         return getattr(batcher, name)
-    if name in _TRANSPORT:
-        raise NotImplementedError(
-            f"repro_torch.serving.{name} is not ported yet: it comes with "
-            f"the port of serving/transport.py (ROADMAP.md Queue 1, "
-            f"transport)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,8 +30,9 @@ quantized bytes, ``row_nbytes_fp32`` the fp32 baseline.
 
 :meth:`DeltaRing.load` restores snapshots, window counter and cumulative
 stats after a restart; banks and pending admissions are not persisted.
-The reference's per-user lookups (``lookup``, ``admitted_rows``) serve its
-socket front-end and come with the port of ``serving/transport.py``.
+The per-user lookups (:meth:`DeltaRing.lookup`,
+:meth:`DeltaRing.admitted_rows`) serve the socket front-end,
+:mod:`repro_torch.serving.transport`.
 """
 from __future__ import annotations
 
@@ -101,6 +102,8 @@ class DeltaRing:
         self._pending: List[Tuple[DeltaBank, int, int]] = []
         # user -> rows admitted to the accumulating window (fairness cap)
         self._user_rows: Dict[object, int] = {}
+        # user -> (window, bank, row) of the user's latest admitted delta
+        self._by_user: Dict[object, Tuple[int, DeltaBank, int]] = {}
         self.stats = {"windows": 0, "admitted": 0, "stragglers": 0,
                       "dropped": 0, "fairness_capped": 0,
                       "robust_clipped": 0, "robust_trimmed": 0,
@@ -140,6 +143,17 @@ class DeltaRing:
                 if isinstance(bank.stacked, QuantStack)
                 else self.row_nbytes)
 
+    def lookup(self, user):
+        """-> (window, bank, row) of the user's latest admitted delta, or
+        None once the row's window has retired from the ring."""
+        return self._by_user.get(user)
+
+    def admitted_rows(self, user) -> int:
+        """Rows this user already has admitted into the accumulating
+        window: the consumed share of the ``user_cap`` budget, which the
+        transport consults to refuse over-cap work at the door."""
+        return self._user_rows.get(user, 0)
+
     @property
     def live_banks(self) -> int:
         return sum(len(b) for b in self._banks.values())
@@ -162,7 +176,12 @@ class DeltaRing:
         self.stats["admitted"] += 1
         self._user_rows[user] = self._user_rows.get(user, 0) + 1
         self._pending.append((bank, row, tau))
+        self._by_user[user] = (self.current, bank, row)
         return "admitted"
+
+    def admit(self, user, bank: DeltaBank, row: int, tau: int) -> bool:
+        """Boolean wrapper over :meth:`admit_row`."""
+        return self.admit_row(user, bank, row, tau) == "admitted"
 
     # -- window boundary ---------------------------------------------------
 
@@ -224,6 +243,9 @@ class DeltaRing:
         for w in [w for w in self._snapshots if w < horizon]:
             del self._snapshots[w]
             self._banks.pop(w, None)
+        for user in [u for u, (w, _, _) in self._by_user.items()
+                     if w < horizon]:
+            del self._by_user[user]
         return state
 
     # -- restart warm-start ------------------------------------------------
@@ -244,6 +266,7 @@ class DeltaRing:
         self._banks = {w: [] for w in self._snapshots}
         self._pending = []
         self._user_rows = {}
+        self._by_user = {}
         if stats is not None:
             self.stats.update({k: int(v) for k, v in stats.items()
                                if k in self.stats})

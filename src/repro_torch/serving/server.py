@@ -34,8 +34,8 @@ next delta before it is quantized.  Heads are lazy
 gather), and the window apply sends the :class:`QuantStack` to the
 ``apply_rows_q`` kernel.
 
-The reference's socket front-end (``serving/transport.py``) and its
-mesh-sharded engines are not ported yet.
+The socket front-end is :mod:`repro_torch.serving.transport`; the
+reference's mesh-sharded engines are not ported yet.
 """
 from __future__ import annotations
 

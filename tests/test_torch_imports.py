@@ -42,6 +42,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.kernels.fused_update.kernel",
                  "repro_torch.core.server", "repro_torch.convert",
                  "repro_torch.serving", "repro_torch.serving.server",
+                 "repro_torch.serving.transport",
                  "repro_torch.checkpoint", "repro_torch.core.quant",
                  "repro_torch.core.subset", "repro_torch.configs",
                  "repro_torch.configs.base",

@@ -344,8 +344,11 @@ def test_serve_main_smoke_on_cpu(tmp_path):
     assert (tmp_path / "serve_zamba2-1.2b.json").is_file()
 
 
-@pytest.mark.parametrize("flag", [["--listen", "0"], ["--model-axis", "2"],
-                                  ["--coordinator", "127.0.0.1:1"]])
+# --listen is ported (tests/test_torch_transport.py); the multi-process
+# flags raise with the mesh's message
+@pytest.mark.parametrize("flag", [["--process-id", "0"], ["--model-axis", "2"],
+                                  ["--coordinator", "127.0.0.1:1"],
+                                  ["--num-processes", "1"]])
 def test_serve_flags_not_ported_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         serve.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu",

@@ -223,10 +223,12 @@ def test_server_refuses_multi_device_and_transport():
     with pytest.raises(NotImplementedError, match="multi-device"):
         PersonalizationServer(_params(), t_loss, PersAFLConfig(**PCFG),
                               device="cpu", mesh=object())
+    # the transport is ported: its names are the transport module's
     import repro_torch.serving as serving
-    for name in ("TransportServer", "TransportClient"):
-        with pytest.raises(NotImplementedError, match="transport.py"):
-            getattr(serving, name)
+    from repro_torch.serving import transport
+    for name in ("AsyncTransportClient", "TransportBusy", "TransportClient",
+                 "TransportError", "TransportServer"):
+        assert getattr(serving, name) is getattr(transport, name)
     with pytest.raises(AttributeError):
         serving.bogus  # noqa: B018
 

@@ -28,8 +28,13 @@ Phases; any failure exits non-zero and prints no result line:
      within FLASH_TOL at FLASH_CASES ((i)'s cohort, (2, 4096) f32 and
      bf16, gemma2-like hd 256 with softcap and GQA, MQA, a tail at S =
      1000, (1, 32768), checked on its first and last 256 rows, (j)'s (8,
-     4096) with its plain versions one batch row at a time, and bf16 tail,
-     hd 128 MQA and hd 128 softcap cases).  Each case also shows that a
+     4096) with its plain versions one batch row at a time, bf16 tail,
+     hd 128 MQA and hd 128 softcap cases, and gemma2-2b's bf16 hd-256
+     shapes: (8, 4096) and (1, 32768) with its window of 4096 and
+     without, (r)'s cohort (4, 128), one partial tile (2, 8) and a tail at
+     S = 1000 with a window of 300).  The library time of a case with a
+     softcap is a compiled ``flex_attention`` call's, SDPA's otherwise.
+     Each case also shows that a
      no-op (a zero output for the scan) and a sign-flipped result fail the same
      check, each per-row case that row 0's a_log for every row does, each
      windowed attention case that the output without the window does, and
@@ -44,7 +49,9 @@ Phases; any failure exits non-zero and prints no result line:
      reference), ``mode="kernel"`` against ``mode="ref"`` within TOLS: at
      the CNN's 8 leaves, at LOCAL_CASES (n = 2^26+3; f32, bf16, f32 with
      bf16 other operands) and at the full param trees of mamba2-130m (12
-     leaves) and zamba2-1.2b (21 leaves), f32.  Every checked call's
+     leaves) and zamba2-1.2b (21 leaves), f32.  The window applies of (f),
+     (i) and (r) at M = 4: mamba2's 12 leaves, zamba2's 10 personal ones
+     and gemma2's unembedding (589,824,000 params).  Every checked call's
      launches are counted (zeroed just before, read just after) and must
      be the planned count: every fused-update kernel takes a table of
      leaves (TABLE_KERNELS), one launch per dtype combination of a leaf's
@@ -198,6 +205,27 @@ Phases; any failure exits non-zero and prints no result line:
      exiting 0 within LISTEN_SECONDS + 10 s of its line with a connection
      still open.
 
+ 11. gemma2-2b (``models/lm.py``) -- (r) ``launch.serve.main`` at full
+     width (3,204,165,888 params in 14 leaves, drawn on the host: its
+     seconds printed), GEMMA2_USERS = 4 users on personalization streams
+     of GEMMA2_PLEN = 128 tokens (``--personalize-len``),
+     ``--personal-subset embed/unembed``, as (f) otherwise:
+     ``flash_attention_fwd`` launched 26 times per forward evaluation of
+     the loss (one per layer, its window decided per layer: 4096 on the
+     even, local layers, none on the odd, global ones), the window apply
+     one ``apply_rows`` / ``apply_rows_q`` launch, the peak of device
+     memory printed, and the int8 server's second flush split by the line
+     that allocated each block live at its peak.  (s) prefill as (g), 2
+     timed calls after a warm-up, 26 launches per call; the (8, 4096)
+     call's profile read by both device-event readers, which must agree.  (t) card against CPU, f32: gemma2 at
+     2 layers (layer 0 local, 1 global) at GEMMA2_PARITY_SHAPE, past the
+     window, ``prefill_logits`` within LM_PREFILL_TOL, an all-global copy
+     of the config outside it, and the subset heads of one mode-C flush of
+     2 users within LM_HEAD_TOL; codeqwen1.5-7b at 2 layers with non-zero
+     QKV biases, ``prefill_logits`` only.
+
+Each group of phases prints its seconds (``phase <label>: <s> s``).
+
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
 line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -325,6 +353,14 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def timed(label: str):
+    """Print the seconds the enclosed phases took."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -1221,7 +1257,14 @@ FLASH_TOL = {"f32": dict(atol=2e-5, rtol=2e-5),
 # prefill shape (8, 4096) with its 4096 window, which is causal attention
 # (SDPA's causal call is its library_ms), and bf16 cases for the wgmma
 # kernel's other paths: a tail with GQA 4:1 and a window, hd 128 MQA, and
-# hd 128 with GQA 4:1, a window and a softcap of 5.
+# hd 128 with GQA 4:1, a window and a softcap of 5.  Then gemma2-2b's own
+# prefill shapes for the bf16 hd-256 kernel (8/4 heads of 256, the softcap
+# of 5 by the rule above): (s)'s (8, 4096) with the 4096 window (causal),
+# and (1, 32768) with the window of its local layers and without one, as
+# its global layers run it; (r)'s cohort shape (4 users x 128 tokens, the
+# window wider than the stream), one partial 8-row tile (2 streams of 8
+# tokens), and a tail (S not a multiple of the kernel's 64-row tile) with a
+# window.
 FLASH_CASES = (
     (4, 128, 32, 32, 64, "bf16", 4096, 0.0),
     (2, 4096, 32, 32, 64, "f32", 1024, 0.0),
@@ -1237,14 +1280,26 @@ FLASH_CASES = (
     (1, 1000, 8, 2, 64, "bf16", 300, 0.0),
     (1, 1024, 8, 1, 128, "bf16", 0, 0.0),
     (1, 2048, 16, 4, 128, "bf16", 512, 5.0),
+    (8, 4096, 8, 4, 256, "bf16", 4096, 5.0),
+    (1, 32768, 8, 4, 256, "bf16", 4096, 5.0),
+    (1, 32768, 8, 4, 256, "bf16", 0, 5.0),
+    (4, 128, 8, 4, 256, "bf16", 4096, 5.0),
+    (2, 8, 8, 4, 256, "bf16", 4096, 5.0),
+    (1, 1000, 8, 4, 256, "bf16", 300, 5.0),
 )
 FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # past this length the plain version's logits do not fit: the case is
 # checked on its first FLASH_EDGE rows (against the plain version on the
 # first FLASH_EDGE positions) and its last FLASH_EDGE rows (against the
-# plain version on the last window + FLASH_EDGE positions, which hold those
-# rows' whole windows)
+# plain version of those rows, placed by ``q_offset``, on the last window +
+# FLASH_EDGE keys, which hold their whole windows, or on all keys without a
+# window)
 FLASH_PLAIN_MAX_S, FLASH_EDGE = 8192, 256
+# the bf16 hd-256 kernel runs on the CUDA cores: 25 ms a call at (8, 4096)
+# and 192 ms at (1, 32768) without a window on an H100, so its long
+# shapes are timed over 3 calls a run, as the cases past FLASH_PLAIN_MAX_S
+# are
+FLASH_SLOW_S = 4096
 # above this many bytes of f32 logits (B·Hq·S²·4) the plain versions run one
 # batch row at a time: attention_ref at (8, 4096, 32 heads) would hold
 # several 17 GB tensors at once
@@ -1274,15 +1329,12 @@ def flash_inputs(torch, g, B, S, Hq, Hkv, hd, dtype):
     return q, k, v
 
 
-def sdpa_library(torch, q, k, v, window, cap, long):
+def sdpa_library(torch, q, k, v, window, long):
     """One ``scaled_dot_product_attention`` call computing the kernel's
-    function on the same tensors (heads moved to dim 1 as views), or None
-    with a softcap, which it does not take.  A window narrower than S goes
-    in as a boolean mask.  At long lengths only the flash and
-    memory-efficient backends are allowed: the math fallback would
-    materialize the logits."""
-    if cap:
-        return None
+    function without a softcap on the same tensors (heads moved to dim 1 as
+    views).  A window narrower than S goes in as a boolean mask.  At long
+    lengths only the flash and memory-efficient backends are allowed: the
+    math fallback would materialize the logits."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     S, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
@@ -1302,6 +1354,43 @@ def sdpa_library(torch, q, k, v, window, cap, long):
         with sdpa_kernel(backends):
             return F.scaled_dot_product_attention(qt, kt, vt, **kw)
     return call
+
+
+def flex_library(torch, q, k, v, window, cap):
+    """One compiled ``flex_attention`` call computing the kernel's function
+    with a softcap, which SDPA does not take: the tanh cap as its
+    ``score_mod``, the causal mask (narrowed to ``window``) as a block mask,
+    GQA by ``enable_gqa``, heads moved to dim 1 as views.  Returns the call
+    (its first call compiles) and the seconds the block mask took."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    global _FLEX
+    if _FLEX is None:
+        # a fresh score_mod per case recompiles; past dynamo's default
+        # limit of 8 it would fall back to the eager version, which
+        # materializes the logits
+        import torch._dynamo
+        torch._dynamo.config.recompile_limit = 64
+        _FLEX = torch.compile(flex_attention, dynamic=False)
+    S, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        live = ki <= qi
+        return live & (qi - ki < window) if window else live
+    t0 = time.perf_counter()
+    mask = create_block_mask(mask_mod, None, None, S, S, device=q.device,
+                             _compile=True)
+    mask_s = time.perf_counter() - t0
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(score_mod=score_mod, block_mask=mask,
+              scale=q.shape[-1] ** -0.5, enable_gqa=Hq != Hkv)
+    return (lambda: _FLEX(qt, kt, vt, **kw)), mask_s
+
+
+_FLEX = None
 
 
 def flash_kernel_phase(torch):
@@ -1349,37 +1438,47 @@ def flash_kernel_phase(torch):
                                         block_k=block_k))]
             nowin = [by_rows(attention_ref, causal=True, softcap=cap)] \
                 if windowed else []
-            nocap = [by_rows(attention_ref, causal=True, window=window)] \
-                if cap else []
+            # the output without the softcap, and what it must differ from
+            nocap = [(by_rows(attention_ref, causal=True, window=window),
+                      pairs[-1][1])] if cap else []
             plain_note = "whole case" + (
                 f", one batch row at a time ({B} rows)" if rowwise else "")
         else:
-            E, L = FLASH_EDGE, window + FLASH_EDGE
+            # the last E rows against the last L keys: their whole windows,
+            # or every key without a window
+            E = FLASH_EDGE
+            L = min(S, window + E) if window else S
             # the last L positions start on a key tile, as the kernel's do
             check((S - L) % block_k == 0,
                   f"flash_attention_fwd {label}: the tail check's first "
                   f"position {S - L} is not on a {block_k}-key tile")
 
+            def tail(fn, **kw2):
+                return fn(q[:, -E:], k[:, -L:], v[:, -L:], q_offset=L - E,
+                          **kw2)
+
             def plain():
-                return attention_ref(q[:, -L:], k[:, -L:], v[:, -L:],
-                                     **kw)[:, -E:]
+                return tail(attention_ref, **kw)
             head = attention_ref(q[:, :E], k[:, :E], v[:, :E], **kw)
             pairs = [(got[:, :E], head), (got[:, -E:], plain())]
             tile_pairs = [
                 (got[:, :E], attention_tiles_ref(
                     q[:, :E], k[:, :E], v[:, :E], **kw, block_k=block_k)),
-                (got[:, -E:], attention_tiles_ref(
-                    q[:, -L:], k[:, -L:], v[:, -L:], **kw,
-                    block_k=block_k)[:, -E:])]
+                (got[:, -E:], tail(attention_tiles_ref, **kw,
+                                   block_k=block_k))]
             # the plain version cannot take the whole sequence without the
             # window either: the kernel's own no-window rows stand for it
             nowin = [K.flash_attention_fwd(q, k, v, causal=True,
-                                           softcap=cap)[:, -E:]]
-            check(not cap, f"flash_attention_fwd {label}: a softcap case "
-                           f"past FLASH_PLAIN_MAX_S has no no-softcap check")
-            nocap = []
+                                           softcap=cap)[:, -E:]] \
+                if windowed else []
+            # on the first rows, which attend few keys: on the last ones a
+            # softmax over thousands of keys moves the output by less than
+            # FLASH_TOL, with or without the cap
+            nocap = [(attention_ref(q[:, :E], k[:, :E], v[:, :E],
+                                    causal=True, window=window), head)] \
+                if cap else []
             plain_note = (f"first and last {E} rows; plain_ms times the "
-                          f"last {E} rows from the last {L} positions")
+                          f"last {E} rows against the last {L} keys")
         tol = FLASH_TOL[dname]
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in pairs)
@@ -1407,26 +1506,38 @@ def flash_kernel_phase(torch):
                   f"the output without the window from attention_ref")
         nocap_err = None
         if cap:
-            nc = nocap[0].float()
-            nocap_err = float((nc - want).abs().max())
-            check(not torch.allclose(nc, want, **tol),
+            nc, nc_want = (t.float() for t in nocap[0])
+            nocap_err = float((nc - nc_want).abs().max())
+            check(not torch.allclose(nc, nc_want, **tol),
                   f"flash_attention_fwd {label}: the tolerance cannot tell "
                   f"the output without the softcap from attention_ref")
         out_abs = float(want.abs().mean())
         nbytes = 2 * q.numel() * q.element_size() \
             + 2 * k.numel() * k.element_size()
         flops = 4 * B * Hq * hd * live_pairs(S, window)
-        lib = sdpa_library(torch, q, k, v, window, cap, long)
-        lib_err = lib_note = None
+        few = 3 if long or (hd == 256 and dname == "bf16"
+                            and S >= FLASH_SLOW_S) else 20
+        lib_err = lib_note = lib_compile_s = None
+        if cap:
+            lib_name = "torch.nn.attention.flex_attention (compiled)"
+            lib, mask_s = flex_library(torch, q, k, v, window, cap)
+        else:
+            lib_name = "torch.nn.functional.scaled_dot_product_attention"
+            lib = sdpa_library(torch, q, k, v, window, long)
         if lib is not None:
+            t0 = time.perf_counter()
             try:
                 lib_out = lib().transpose(1, 2)
-            except RuntimeError as exc:
-                # the yardstick only: no flash or memory-efficient backend
-                # of this PyTorch takes the case, and the math one would
-                # not fit
-                lib, lib_note = None, str(exc).splitlines()[0][:200]
+                torch.cuda.synchronize()
+            except Exception as exc:  # noqa: BLE001
+                # the yardstick only: no SDPA backend of this PyTorch takes
+                # the case (the math one would not fit), or flex_attention
+                # does not compile it
+                lib, lib_note = None, (f"{type(exc).__name__}: "
+                                       f"{str(exc).splitlines()[0][:200]}")
             else:
+                if cap:
+                    lib_compile_s = time.perf_counter() - t0 + mask_s
                 if long:
                     lib_out = lib_out[:, -FLASH_EDGE:]
                 lib_err = float((lib_out.float() - want).abs().max())
@@ -1437,14 +1548,14 @@ def flash_kernel_phase(torch):
                "no_window_err": nowin_err, "no_softcap_err": nocap_err,
                "mean_abs_out": out_abs,
                "ms": time_ms(torch, lambda: K.flash_attention_fwd(
-                   q, k, v, **kw), launches=3 if long else 20),
+                   q, k, v, **kw), launches=few),
                "plain_ms": time_ms(torch, plain, launches=1, repeats=3,
                                    warmup=1),
                "plain_checked": plain_note,
                "library_ms": None if lib is None else time_ms(
-                   torch, lib, launches=3 if long else 20),
-               "library": None if lib is None else
-               "torch.nn.functional.scaled_dot_product_attention",
+                   torch, lib, launches=few),
+               "library": None if lib is None else lib_name,
+               "library_compile_s": lib_compile_s,
                "library_max_abs_err": lib_err, "library_note": lib_note}
         row.update(bound_fields(torch, q.dtype, nbytes, flops, row["ms"]))
         rows.append(row)
@@ -1592,6 +1703,17 @@ def main_run(torch, setup, name, ev):
     return hist
 
 
+def device_events(torch, prof):
+    """(name, ms) of each device-side event of a finished ``torch.profiler``
+    run, from its raw kineto events: building the profiler's function
+    events instead costs ~60 µs of host time an event, tens of seconds for
+    a serving flush's."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def profile_phase(torch, label: str, fn):
     """Device busy share of ``fn()`` under ``torch.profiler``: the CUDA
     kernels' summed time over the wall time, and the top kernels."""
@@ -1603,17 +1725,16 @@ def profile_phase(torch, label: str, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = device_events(torch, prof)
+    busy_ms = sum(ms for _, ms in kernels)
     top = {}
-    for e in kernels:
-        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, ms in kernels:
+        top[name] = top.get(name, 0.0) + ms
     top5 = sorted(top.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile {label}: wall {wall:.3f} s, device kernels "
-          f"{len(kernels)}, device busy {busy_us / 1e6:.3f} s "
-          f"({100 * busy_us / 1e6 / wall:.2f}% of wall), top "
-          f"{json.dumps([(n[:60], round(t / 1e3, 3)) for n, t in top5])} "
+          f"{len(kernels)}, device busy {busy_ms / 1e3:.3f} s "
+          f"({100 * busy_ms / 1e3 / wall:.2f}% of wall), top "
+          f"{json.dumps([(n[:60], round(t, 3)) for n, t in top5])} "
           f"(ms)", flush=True)
 
 
@@ -1954,15 +2075,31 @@ def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
 
 # the published widths: params and leaves of the reference's init
 LM_PARAMS = {"mamba2-130m": (167_598_528, 12),
-             "zamba2-1.2b": (1_183_058_816, 21)}
+             "zamba2-1.2b": (1_183_058_816, 21),
+             "gemma2-2b": (3_204_165_888, 14)}
 # the serve driver's mode C: lambda 30, alpha 0.01, K 5, eta_in 0.01
 LM_USERS, LM_TOKENS, LM_INNER_STEPS, LM_PROMPT = 4, 16, 5, 8
 # zamba2's personal subset: the shared attention+MLP block and the
 # unembedding (145,233,920 params a user); the full model's per-user copies
 # would not fit 4 users in 80 GB
 ZAMBA_SUBSET = "shared,embed/unembed"
-# prefill shapes of phases (g) and (j), (B, S): the kernel cases' long ones
+# gemma2's personal subset: the unembedding (589,824,000 params a user,
+# 2.36 GB in fp32); the whole model's per-user copies would not fit.  (r)
+# serves GEMMA2_USERS users on personalization streams of GEMMA2_PLEN
+# tokens (launch/serve.py's default, the 8-token prompt, is a toy length
+# for a flush)
+GEMMA2_SUBSET, GEMMA2_USERS, GEMMA2_PLEN = "embed/unembed", 4, 128
+# allocator events kept while one call's peak device memory is split by
+# the line that allocated each block
+MEM_TRACE_ENTRIES = 2_000_000
+# prefill shapes of phases (g), (j) and (s), (B, S): the kernel cases' long
+# ones
 PREFILL_SHAPES = ((8, 4096), (1, 32768))
+# (t): gemma2 at 2 layers (0 local, 1 global) at a length past its window of
+# 4096, so that the local layer's window binds; its flush on streams of
+# GEMMA2_PARITY_PLEN tokens (the CPU's share of (t) grows with the 256,000
+# vocab times the stream)
+GEMMA2_PARITY_SHAPE, GEMMA2_PARITY_PLEN = (1, 4608), 32
 # phases (h) and (k): card against CPU, f32, TF32 off.  The card runs the
 # scan through ssd_fwd and the CPU through ssd_chunked (einsums), which sum
 # the chunk products in other orders (ssd_fwd vs ssd_ref differ by up to
@@ -1979,21 +2116,43 @@ LM_HEAD_TOL = dict(atol=1e-5, rtol=0.0)
 def lm_leaf_shapes(arch):
     """An LM's leaf shapes in tree order, from the config alone."""
     from repro_torch.configs import get_config
-    from repro_torch.models import mamba2 as m2
     cfg = get_config(arch)
-    s, d, L, V = cfg.ssm, cfg.d_model, cfg.n_layers, cfg.vocab
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    if cfg.ssm is None:
+        # models/lm.py: embed, final_norm, then the stacked layers' attn
+        # (biases first), norms and MLP, then the visual projection
+        shapes = [(V, d), (d, V), (d,)]
+        if cfg.qkv_bias:
+            shapes += [(L, hkv), (L, hq), (L, hkv)]
+        shapes += [(L, d, hkv), (L, hq, d), (L, d, hq), (L, d, hkv)]
+        shapes += [(L, d)] * (4 if cfg.post_block_norm else 2)
+        shapes += [(L, cfg.d_ff, d), (L, d, cfg.d_ff), (L, d, cfg.d_ff)]
+        return shapes + ([(d, d)] if cfg.n_visual_tokens else [])
+    from repro_torch.models import mamba2 as m2
+    s = cfg.ssm
     d_in, nh, conv = m2.dims(cfg)
     proj = 2 * d_in + 2 * s.n_groups * s.state_dim + nh
     shapes = [(V, d), (d, V), (d,), (L, d), (L, nh), (L, conv),
               (L, s.conv_width, conv), (L, nh), (L, nh), (L, d_in),
               (L, d, proj), (L, d_in, d)]
     if cfg.attn_every:
-        hq = cfg.n_heads * cfg.resolved_head_dim
-        hkv = cfg.n_kv_heads * cfg.resolved_head_dim
         shapes += [(2 * d, hkv), (hq, d), (2 * d, hq), (2 * d, hkv),
                    (2 * d,), (d,), (cfg.d_ff, d), (d, cfg.d_ff),
                    (d, cfg.d_ff)]
     return shapes
+
+
+def lm_forward_launches(cfg):
+    """(ssd_fwd, flash_attention_fwd) launches of one forward evaluation of
+    an LM: one ssd_fwd per Mamba2 layer and one flash_attention_fwd per
+    shared-block invocation (ssm_lm), or one flash_attention_fwd per layer
+    (models/lm.py)."""
+    from repro_torch.models import ssm_lm
+    if cfg.ssm is None:
+        return 0, cfg.n_layers
+    return cfg.n_layers, ssm_lm.n_shared_slots(cfg)
 
 
 def _stack_batches(torch, batches):
@@ -2015,34 +2174,51 @@ def _lm_launches():
     return (KS.LAUNCHES["ssd_fwd"], KF.LAUNCHES["flash_attention_fwd"])
 
 
-def lm_serving_phase(torch, arch, label, subset=None):
-    """(f) / (i): ``repro_torch.launch.serve.main`` on the card at full
-    width, 4 users, mode C, fp32 and int8 banking, with ``subset`` as
-    ``--personal-subset``; then one ``advance_window()`` per server.  Counts
-    are zeroed just before each run.  Returns per-codec numbers and the
-    (int8 run's) config and params."""
+def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
+                     plen=None, split_memory=False):
+    """(f) / (i) / (r): ``repro_torch.launch.serve.main`` on the card at
+    full width, ``users`` users, mode C, fp32 and int8 banking, with
+    ``subset`` as ``--personal-subset`` and ``plen`` as
+    ``--personalize-len``; then one ``advance_window()`` per server.
+    Counts and the peak of device memory are zeroed just before each run.
+    With ``split_memory`` the int8 run is traced by the allocator from
+    ``serve.main`` to a second flush, and the peaks of both split by
+    allocating line (``memory_split``).  Returns
+    per-codec numbers and the (int8 run's) config and params."""
     from torch.func import vmap
 
     from repro_torch.core.subset import merge_subset
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.launch import serve
-    from repro_torch.models import api, ssm_lm
+    from repro_torch.models import api
     from repro_torch.tree import tree_leaves, tree_map
     n_params_want, n_leaves_want = LM_PARAMS[arch]
     out, keep = {}, None
     for codec in ("fp32", "int8"):
+        keep = None        # the last run's params leave the card first
         argv = ["--arch", arch, "--personalize", "--requests",
-                str(LM_USERS), "--tokens", str(LM_TOKENS), "--prompt-len",
+                str(users), "--tokens", str(LM_TOKENS), "--prompt-len",
                 str(LM_PROMPT), "--inner-steps",
                 str(LM_INNER_STEPS), "--device", "cuda",
                 "--delta-dtype", codec, "--out",
                 str(ROOT / "build" / "serve")]
         if subset:
             argv += ["--personal-subset", subset]
+        if plen:
+            argv += ["--personalize-len", str(plen)]
+        split = split_memory and codec == "int8"
+        if split:
+            # the int8 run's device memory is split by allocating line: its
+            # allocations are traced from here to its second flush
+            mem_before = memory_record(torch)
         _reset_lm_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run = serve.main(argv)
         main_wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if split:
+            mark_main = len(memory_trace(torch))
         # read before the loss checks below, which launch the kernels too
         ssd_launches, flash_launches = _lm_launches()
         cfg, srv = run.cfg, run.server
@@ -2056,7 +2232,7 @@ def lm_serving_phase(torch, arch, label, subset=None):
         check(all(bool(torch.isfinite(x).all())
                   for x in tree_leaves(run.heads)),
               f"{label} {codec}: personalized heads not finite")
-        check(tuple(run.out_tokens.shape) == (LM_USERS, LM_TOKENS),
+        check(tuple(run.out_tokens.shape) == (users, LM_TOKENS),
               f"{label} {codec}: decoded {tuple(run.out_tokens.shape)}")
         # every user's head against the global params on their own stream,
         # one vmapped forward each; a subset head goes over the shared
@@ -2077,8 +2253,9 @@ def lm_serving_phase(torch, arch, label, subset=None):
         st = srv.stats
         # K prox steps and nu's gradient per mode-C cohort call
         evals = (LM_INNER_STEPS + 1) * st["cohort_calls"]
-        expect = {"ssd_fwd": cfg.n_layers * evals,
-                  "flash_attention_fwd": ssm_lm.n_shared_slots(cfg) * evals}
+        per = lm_forward_launches(cfg)
+        expect = {"ssd_fwd": per[0] * evals,
+                  "flash_attention_fwd": per[1] * evals}
         # the window apply of the one bank: apply_rows_q or apply_rows one
         # launch per tree of the personal leaves (one dtype combination)
         n_personal = len(tree_leaves(spec.extract(run.params))) \
@@ -2097,7 +2274,8 @@ def lm_serving_phase(torch, arch, label, subset=None):
             "params": n_params, "bytes_per_f32_copy": 4 * n_params,
             "personal_params": sum(x.numel() for x in tree_leaves(
                 spec.extract(run.params))) if spec is not None else n_params,
-            "main_wall_s": main_wall,
+            "main_wall_s": main_wall, "init_s": run.init_s,
+            "peak_device_gb": peak_gb,
             "personalize_flush_s": run.personalize_s,
             "decode_s": run.decode_s,
             "decode_s_per_token": run.decode_s / LM_TOKENS,
@@ -2135,11 +2313,40 @@ def lm_serving_phase(torch, arch, label, subset=None):
                                          f"finite after the window apply")
         if codec == "int8":
             # where the serving path's time goes: a second cohort call of
-            # the same 4 users, and a short personalized decode
+            # the same users, and a short personalized decode
             def again():
                 for user, b in zip(run.users, run.batches):
                     srv.submit(user, b)
                 srv.flush()
+            if split:
+                # the second flush carries each user's banked residual,
+                # the first does not
+                mark, oom = len(memory_trace(torch)), None
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    again()
+                except torch.OutOfMemoryError as exc:
+                    oom = str(exc).splitlines()[0][:300]
+                second_s = time.perf_counter() - t0
+                second_peak = torch.cuda.max_memory_allocated() / 1e9
+                trace = memory_trace(torch)
+                memory_record(torch, on=False)
+                row["memory"] = {
+                    "serve_main": memory_split(trace, mem_before,
+                                               stop=mark_main),
+                    "second_flush": {
+                        **memory_split(trace, mem_before, start=mark),
+                        "wall_s": second_s,
+                        "max_memory_allocated_gb": second_peak,
+                        "oom": oom}}
+                del trace
+                for k, v in row["memory"].items():
+                    print(f"{label} int8 run, device memory at the peak of "
+                          f"{k} by allocating line: {json.dumps(v)}",
+                          flush=True)
+                check(oom is None, f"{label} int8: the second flush ran "
+                                   f"out of device memory: {oom}")
             row["profile_flush"] = profile_shares(torch, again)
             row["profile_decode_4_tokens"] = profile_shares(
                 torch, lambda: serve._decode_personalized(
@@ -2150,7 +2357,9 @@ def lm_serving_phase(torch, arch, label, subset=None):
                   f"{json.dumps(row['profile_decode_4_tokens'])}",
                   flush=True)
         keep = (cfg, run.params)
-        del run, srv, batch
+        # leaves too: it would hold this run's params through the next
+        # run's serve.main
+        del run, srv, batch, leaves
         torch.cuda.empty_cache()
     bpu = {k: out[k]["ring_bytes_per_user"] for k in out}
     print(f"{label} {arch} ring_bytes_per_user fp32 {bpu['fp32']} int8 "
@@ -2161,10 +2370,87 @@ def lm_serving_phase(torch, arch, label, subset=None):
     return out, keep
 
 
-def profile_shares(torch, fn):
+def _alloc_site(frames):
+    """The innermost frame of this repo in an allocator trace's stack, as
+    'path:line function'."""
+    for f in frames:
+        name = f["filename"]
+        if "repro_torch" in name or name.endswith("chip_smoke.py"):
+            short = name[name.rfind("repro_torch"):] \
+                if "repro_torch" in name else "chip_smoke.py"
+            return f"{short}:{f['line']} {f['name']}"
+    return "(no frame of this repo)"
+
+
+def memory_record(torch, on=True):
+    """Start (``on``) or stop recording the caching allocator's trace with
+    Python stacks; returns the bytes allocated now."""
+    torch.cuda.synchronize()
+    if on:
+        torch.cuda.memory._record_memory_history(
+            context="alloc", stacks="python", max_entries=MEM_TRACE_ENTRIES)
+    else:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    return torch.cuda.memory_allocated()
+
+
+def memory_trace(torch):
+    """The allocator's trace recorded so far on the current card."""
+    torch.cuda.synchronize()
+    snap = torch.cuda.memory._snapshot()
+    return snap["device_traces"][torch.cuda.current_device()]
+
+
+def memory_split(trace, before, start=0, stop=None, top=14):
+    """The peak of allocated device memory over ``trace[start:stop]``,
+    split by the line that allocated each block live at the peak (blocks
+    allocated since the trace began; the ``before`` bytes allocated when it
+    began are one entry, less what of them was freed).  GB are 1e9 bytes
+    of allocated blocks (the allocator's rounded sizes)."""
+    stop = len(trace) if stop is None else stop
+
+    def replay(end):
+        # allocated bytes at the peak over [start, end), its index, and the
+        # live blocks and the bytes from before the trace after event `end`
+        live, cur, pre, peak, at = {}, 0, 0, -1, start
+        for i, ev in enumerate(trace[:end]):
+            act = ev["action"]
+            if act == "alloc":
+                live[ev["addr"]] = (ev["size"], ev.get("frames", ()))
+                cur += ev["size"]
+            elif act in ("free_requested", "free_completed"):
+                if live.pop(ev["addr"], None) is not None:
+                    cur -= ev["size"]
+                elif act == "free_requested":
+                    pre += ev["size"]     # a block from before the trace
+            else:
+                continue
+            if i >= start and before - pre + cur > peak:
+                peak, at = before - pre + cur, i
+        return peak, at, live, before - pre
+    peak, at, _, _ = replay(stop)
+    _, _, live, kept = replay(at + 1)
+    by_site = {}
+    for size, frames in live.values():
+        site = _alloc_site(frames)
+        by_site[site] = by_site.get(site, 0) + size
+    rows = sorted(by_site.items(), key=lambda kv: -kv[1])
+    split = [("allocated before the trace, still live", kept)] + rows[:top]
+    if rows[top:]:
+        split.append((f"{len(rows) - top} other lines",
+                      sum(b for _, b in rows[top:])))
+    return {"peak_gb": peak / 1e9, "events": stop - start,
+            "trace_full": len(trace) >= MEM_TRACE_ENTRIES,
+            "split_gb": [(k, round(b / 1e9, 4)) for k, b in split]}
+
+
+def profile_shares(torch, fn, compare_readers=False):
     """Wall, device busy time, and device time in ssd_fwd, in
     flash_attention_fwd, in GEMMs and in everything else, of one ``fn()``
-    under ``torch.profiler``."""
+    under ``torch.profiler``.  With ``compare_readers`` the same profile is
+    also read through the profiler's function events (``prof.events()``,
+    the slow reader ``device_events`` replaced), whose device-event count
+    and busy time must agree with the raw events'."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2176,46 +2462,62 @@ def profile_shares(torch, fn):
     sums = {"ssd_fwd": 0.0, "flash_attention_fwd": 0.0, "gemm": 0.0,
             "other": 0.0}
     by_name = {}
-    n = 0
-    for e in prof.events():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        n += 1
-        name = e.name.lower()
+    kernels = device_events(torch, prof)
+    n = len(kernels)
+    for full, ms in kernels:
+        name = full.lower()
         # cuBLAS names its Hopper GEMMs nvjet_*, its older ones *gemm*/xmma
         key = "ssd_fwd" if "ssd_fwd" in name else \
             "flash_attention_fwd" if "flash_attention_fwd" in name else \
             "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
                                               "nvjet")) else "other"
-        ms = e.time_range.elapsed_us() / 1e3
         sums[key] += ms
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+        by_name[full[:60]] = by_name.get(full[:60], 0.0) + ms
     busy = sum(sums.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    readers = None
+    if compare_readers:
+        t0 = time.perf_counter()
+        fev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        fbusy = sum(e.time_range.elapsed_us() for e in fev) / 1e3
+        readers = {"raw": {"device_kernels": n, "busy_ms": busy},
+                   "function_events": {
+                       "device_kernels": len(fev), "busy_ms": fbusy,
+                       "read_s": time.perf_counter() - t0}}
+        print(f"profile readers on one profile: {json.dumps(readers)}",
+              flush=True)
+        check(len(fev) == n and abs(fbusy - busy) <= 1e-3 * busy + 1e-3,
+              f"the raw-event and function-event readers disagree: "
+              f"{readers}")
     return {"wall_ms": wall * 1e3, "device_kernels": n, "busy_ms": busy,
             "busy_share": busy / (wall * 1e3),
             **{f"{k}_ms": v for k, v in sums.items()},
             **{f"{k}_share": v / busy if busy else 0.0
                for k, v in sums.items()},
-            "top_ms": [(k, round(v, 3)) for k, v in top]}
+            "top_ms": [(k, round(v, 3)) for k, v in top],
+            **({"readers": readers} if readers else {})}
 
 
-def prefill_phase(torch, cfg, params, label):
-    """(g) / (j): ``make_prefill_step`` at full width, bf16 activations, at
-    PREFILL_SHAPES: wall per call (3 calls after a warm-up), ssd_fwd and
-    flash_attention_fwd launches (one per layer and one per shared
-    invocation, each call), the kernels the ssd_fwd calls launched, and one
-    call under the profiler."""
+def prefill_phase(torch, cfg, params, label, calls=3,
+                  compare_readers=False):
+    """(g) / (j) / (s): ``make_prefill_step`` at full width, bf16
+    activations, at PREFILL_SHAPES: wall per call (``calls`` calls after a
+    warm-up), ssd_fwd and flash_attention_fwd launches (per
+    ``lm_forward_launches``, each call), the kernels the ssd_fwd calls
+    launched, the peak of device memory, and one call under the
+    profiler (the first shape's read by both readers with
+    ``compare_readers``)."""
     from repro_torch.kernels.ssd import kernel as KS
     from repro_torch.launch import steps
-    from repro_torch.models import ssm_lm
     step = steps.make_prefill_step(cfg)
     g = torch.Generator(device="cuda").manual_seed(2)
-    per_call = (cfg.n_layers, ssm_lm.n_shared_slots(cfg))
+    per_call = lm_forward_launches(cfg)
     out = {}
     for B, S in PREFILL_SHAPES:
         batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
                                          device="cuda", dtype=torch.int32)}
+        torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             logits = step(params, batch)
             torch.cuda.synchronize()
@@ -2225,24 +2527,27 @@ def prefill_phase(torch, cfg, params, label):
                   f"{tuple(logits.shape)} not finite or misshapen")
             _reset_lm_launches()
             walls = []
-            for _ in range(3):
+            for _ in range(calls):
                 t0 = time.perf_counter()
                 step(params, batch)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             launches = _lm_launches()
             ssd_kernels = KS.LAUNCHES["ssd_fwd_kernels"]
-            check(launches == (3 * per_call[0], 3 * per_call[1]),
+            check(launches == (calls * per_call[0], calls * per_call[1]),
                   f"{label} prefill ({B}, {S}): ssd_fwd and "
-                  f"flash_attention_fwd launched {launches} times in 3 "
-                  f"calls, expected 3 x {per_call}")
-            prof = profile_shares(torch, lambda: step(params, batch))
+                  f"flash_attention_fwd launched {launches} times in "
+                  f"{calls} calls, expected {calls} x {per_call}")
+            prof = profile_shares(
+                torch, lambda: step(params, batch),
+                compare_readers=compare_readers and not out)
         row = {"wall_ms": [w * 1e3 for w in walls],
                "wall_ms_median": statistics.median(walls) * 1e3,
                "tokens_per_s": B * S / statistics.median(walls),
-               "ssd_fwd_launches_per_call": launches[0] // 3,
-               "ssd_fwd_kernels_per_call": ssd_kernels / 3,
-               "flash_attention_fwd_launches_per_call": launches[1] // 3,
+               "ssd_fwd_launches_per_call": launches[0] // calls,
+               "ssd_fwd_kernels_per_call": ssd_kernels / calls,
+               "flash_attention_fwd_launches_per_call": launches[1] // calls,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
                "profile": prof}
         out[f"{B}x{S}"] = row
         print(f"{label} {cfg.arch_id} prefill (B, S) = ({B}, {S}) bf16: "
@@ -2252,10 +2557,14 @@ def prefill_phase(torch, cfg, params, label):
     return out
 
 
-def lm_cpu_parity(torch, arch, n_layers, label, subset=None):
-    """(h) / (k): ``arch`` at full width but ``n_layers`` layers, f32, on
-    the card and on the CPU: prefill_logits, and the heads of one mode-C
-    flush of 2 users (``subset`` personalized, else the whole model)."""
+def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
+                  plen=128, flush=True):
+    """(h) / (k) / (t): ``arch`` at full width but ``n_layers`` layers, f32,
+    on the card and on the CPU: prefill_logits at ``shape`` (B, S), and with
+    ``flush`` the heads of one mode-C flush of 2 users on streams of
+    ``plen`` tokens (``subset`` personalized, else the whole model).  QKV
+    biases, zero at init, are drawn non-zero; with local/global
+    alternation, an all-global copy of the config must give other logits."""
     from repro_torch.configs import get_config
     from repro_torch.core import PersAFLConfig
     from repro_torch.data import synthetic_token_batch
@@ -2265,25 +2574,57 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None):
     from repro_torch.tree import tree_leaves, tree_map
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
-    p_cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    p_cpu = api.init_params(cfg, gen, "cpu")
+    if cfg.qkv_bias:
+        attn = p_cpu["layers"]["attn"]
+        for k in ("bq", "bk", "bv"):
+            attn[k] = 0.5 * torch.randn(attn[k].shape, generator=gen)
+    init_s = time.perf_counter() - t0
     p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
-    tokens = synthetic_token_batch(5, 2, 256, cfg.vocab)["tokens"]
+    tokens = torch.from_numpy(synthetic_token_batch(5, *shape,
+                                                    cfg.vocab)["tokens"])
     _reset_lm_launches()
     with torch.no_grad():
-        lg = api.prefill_logits(cfg, p_gpu, {"tokens": torch.from_numpy(
-            tokens).cuda()}).cpu()
+        lg = api.prefill_logits(cfg, p_gpu, {"tokens": tokens.cuda()}).cpu()
         launches = _lm_launches()
-        lc = api.prefill_logits(cfg, p_cpu, {"tokens": torch.from_numpy(
-            tokens)})
+        t0 = time.perf_counter()
+        lc = api.prefill_logits(cfg, p_cpu, {"tokens": tokens})
+        cpu_prefill_s = time.perf_counter() - t0
+        glob_diff = None
+        if cfg.local_global_period:
+            glob = dataclasses.replace(cfg, local_global_period=0,
+                                       sliding_window=0)
+            lglob = api.prefill_logits(glob, p_gpu,
+                                       {"tokens": tokens.cuda()}).cpu()
+            glob_diff = float((lglob - lc).abs().max())
     diff = float((lg - lc).abs().max())
     check(torch.allclose(lg, lc, **LM_PREFILL_TOL)
           and not torch.allclose(torch.zeros_like(lc), lc, **LM_PREFILL_TOL)
           and not torch.allclose(-lc, lc, **LM_PREFILL_TOL),
           f"{label} prefill logits card vs CPU differ by {diff} (tol "
           f"{LM_PREFILL_TOL})")
+    print(f"{label} card vs CPU, {arch} at {n_layers} layers f32, prefill "
+          f"{tuple(shape)}: logits max |diff| {diff:.3e} (tol "
+          f"{LM_PREFILL_TOL}; card launches ssd_fwd/flash_attention_fwd "
+          f"{launches}); all-global copy max |diff| {glob_diff}; host init "
+          f"{init_s:.2f} s, CPU prefill {cpu_prefill_s:.2f} s", flush=True)
+    check(launches == lm_forward_launches(cfg),
+          f"{label}: the card's prefill launched ssd_fwd and "
+          f"flash_attention_fwd {launches} times")
+    if glob_diff is not None:
+        check(not torch.allclose(lglob, lc, **LM_PREFILL_TOL),
+              f"{label}: the all-global copy's logits are within the "
+              f"tolerance of the windowed ones: the check cannot see the "
+              f"window")
+    out = {"prefill_diff": diff, "launches": launches,
+           "all_global_diff": glob_diff}
+    if not flush:
+        return out
     pcfg = PersAFLConfig(option="C", lam=30.0, alpha=0.01, inner_steps=5,
                          inner_eta=0.01)
-    batches = [serve._user_batch(cfg, u, 128) for u in range(2)]
+    batches = [serve._user_batch(cfg, u, plen) for u in range(2)]
     heads, walls = {}, {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         srv = PersonalizationServer(
@@ -2298,28 +2639,47 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None):
         walls[dev] = time.perf_counter() - t0
         base = srv.personal_subset.extract(p_cpu) \
             if srv.personal_subset is not None else p_cpu
+        del srv
     hdiff = max(float((a - b).abs().max())
                 for a, b in zip(heads["cuda"], heads["cpu"]))
     moved = max(float((h - p[None]).abs().max())
                 for h, p in zip(heads["cpu"], tree_leaves(base)))
     print(f"{label} card vs CPU, {arch} at {n_layers} layers f32"
-          f"{' subset ' + subset if subset else ''}: prefill logits max "
-          f"|diff| {diff:.3e} (tol {LM_PREFILL_TOL}; card launches "
-          f"ssd_fwd/flash_attention_fwd {launches}); heads of a mode-C "
-          f"flush of 2 users max |diff| {hdiff:.3e} (tol {LM_HEAD_TOL}), "
-          f"heads moved {moved:.3e}; flush wall card {walls['cuda']:.3f} s "
-          f"cpu {walls['cpu']:.3f} s", flush=True)
-    from repro_torch.models import ssm_lm
-    check(launches == (n_layers, ssm_lm.n_shared_slots(cfg)),
-          f"{label}: the card's prefill launched ssd_fwd and "
-          f"flash_attention_fwd {launches} times")
+          f"{' subset ' + subset if subset else ''}: heads of a mode-C "
+          f"flush of 2 users on {plen} tokens max |diff| {hdiff:.3e} (tol "
+          f"{LM_HEAD_TOL}), heads moved {moved:.3e}; flush wall card "
+          f"{walls['cuda']:.3f} s cpu {walls['cpu']:.3f} s", flush=True)
     check(all(torch.allclose(a, b, **LM_HEAD_TOL)
               for a, b in zip(heads["cuda"], heads["cpu"])),
           f"{label} heads card vs CPU differ by {hdiff}")
     check(moved > 10 * LM_HEAD_TOL["atol"],
           f"{label} heads moved only {moved}: the check cannot see a no-op")
-    return {"prefill_diff": diff, "head_diff": hdiff, "moved": moved,
-            "launches": launches}
+    out.update(head_diff=hdiff, moved=moved)
+    return out
+
+
+def gemma2_phases(torch):
+    """(r) gemma2-2b served at full width through ``launch.serve.main``
+    (GEMMA2_USERS users on streams of GEMMA2_PLEN tokens,
+    ``--personal-subset embed/unembed``, fp32 then int8, one window apply
+    each, the int8 server's second flush split by allocating line), (s) its prefill at PREFILL_SHAPES, 2 timed calls
+    each, (t) card against CPU: gemma2 at 2 layers (the window binds at
+    GEMMA2_PARITY_SHAPE) with one flush, and codeqwen1.5-7b at 2 layers
+    (QKV biases, MHA 32/32 of 128, rope theta 1e6), prefill only.  Returns
+    (r)'s and (s)'s rows."""
+    gl, (g_cfg, g_params) = lm_serving_phase(
+        torch, "gemma2-2b", "(r)", subset=GEMMA2_SUBSET, users=GEMMA2_USERS,
+        plen=GEMMA2_PLEN, split_memory=True)
+    gprefill = prefill_phase(torch, g_cfg, g_params, "(s)", calls=2,
+                             compare_readers=True)
+    del g_params
+    torch.cuda.empty_cache()
+    lm_cpu_parity(torch, "gemma2-2b", 2, "(t)", subset=GEMMA2_SUBSET,
+                  shape=GEMMA2_PARITY_SHAPE, plen=GEMMA2_PARITY_PLEN)
+    torch.cuda.empty_cache()
+    lm_cpu_parity(torch, "codeqwen1.5-7b", 2, "(t)", flush=False)
+    torch.cuda.empty_cache()
+    return gl, gprefill
 
 
 # ---------------------------------------------------------------------------
@@ -2367,10 +2727,9 @@ def device_kernels(torch, fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return {"kernels": len(kernels), "device_ms": sum(
-        e.time_range.elapsed_us() for e in kernels) / 1e3}
+    kernels = device_events(torch, prof)
+    return {"kernels": len(kernels),
+            "device_ms": sum(ms for _, ms in kernels)}
 
 
 def scale_window(torch, sched, model, base, state, stats):
@@ -3212,58 +3571,77 @@ def run_phases(torch):
     cnn_shapes = [tuple(x.shape) for x in tree_leaves(setup[1])]
     mshapes = lm_leaf_shapes("mamba2-130m")
     zshapes = lm_leaf_shapes("zamba2-1.2b")
-    # zamba2's personal subset: embed/unembed and the 9 shared leaves
-    results = kernel_phase(torch, cnn_shapes, (
-        ("mamba2-130m 12 leaves", mshapes),
-        ("zamba2-1.2b shared,embed/unembed 10 leaves",
-         [zshapes[1]] + zshapes[12:])))
+    gshapes = lm_leaf_shapes("gemma2-2b")
+    check((sum(int(np.prod(sh)) for sh in gshapes), len(gshapes))
+          == LM_PARAMS["gemma2-2b"],
+          f"gemma2-2b: {len(gshapes)} leaves of the config's shapes")
+    # zamba2's personal subset: embed/unembed and the 9 shared leaves;
+    # gemma2's: embed/unembed
+    with timed("kernels"):
+        results = kernel_phase(torch, cnn_shapes, (
+            ("mamba2-130m 12 leaves", mshapes),
+            ("zamba2-1.2b shared,embed/unembed 10 leaves",
+             [zshapes[1]] + zshapes[12:]),
+            ("gemma2-2b embed/unembed 1 leaf", [gshapes[1]])))
     lm_trees = []
     for arch, shapes in (("mamba2-130m", mshapes), ("zamba2-1.2b", zshapes)):
         n_params = sum(int(np.prod(sh)) for sh in shapes)
         check((n_params, len(shapes)) == LM_PARAMS[arch],
               f"{arch}: {n_params} params in {len(shapes)} leaves")
         lm_trees.append((f"{arch} {len(shapes)} leaves f32", shapes))
-    local_rows, local_launches = local_step_phase(torch, cnn_shapes,
-                                                  lm_trees)
-    results.update(local_rows)
-    for name, rows in table_tree_phase(torch).items():
-        results[name] += rows
-    results["ssd_fwd"] = ssd_kernel_phase(torch)
-    results["flash_attention_fwd"] = flash_kernel_phase(torch)
+    with timed("local steps and leaf tables"):
+        local_rows, local_launches = local_step_phase(torch, cnn_shapes,
+                                                      lm_trees)
+        results.update(local_rows)
+        for name, rows in table_tree_phase(torch).items():
+            results[name] += rows
+    with timed("ssd_fwd"):
+        results["ssd_fwd"] = ssd_kernel_phase(torch)
+    with timed("flash_attention_fwd"):
+        results["flash_attention_fwd"] = flash_kernel_phase(torch)
     imm_ms = immediate_apply_ms(torch, setup[1])
     print(f"immediate apply as the main path runs it (H2D copy of one "
           f"host row + {len(cnn_shapes)} launches): {imm_ms:.4f} ms",
           flush=True)
 
-    launches, hists = main_path(torch, setup)
-    profile_training(torch, setup)
-    cpu_parity(torch, setup, hists)
-    serve_launches, _ = serving_phase(torch, setup)
-    lm, (lm_cfg, lm_params) = lm_serving_phase(torch, "mamba2-130m",
-                                               "(f)")
-    prefill = prefill_phase(torch, lm_cfg, lm_params, "(g)")
-    del lm_params
-    torch.cuda.empty_cache()
-    lm_cpu_parity(torch, "mamba2-130m", 2, "(h)")
-    zl, (z_cfg, z_params) = lm_serving_phase(torch, "zamba2-1.2b", "(i)",
-                                             subset=ZAMBA_SUBSET)
-    zprefill = prefill_phase(torch, z_cfg, z_params, "(j)")
-    del z_params
-    torch.cuda.empty_cache()
-    lm_cpu_parity(torch, "zamba2-1.2b", 6, "(k)", subset=ZAMBA_SUBSET)
-    base_launches = baselines_phase(torch, setup)
-    scenario_launches = {"(m)": scale_phase(torch),
-                         "(n)": churn_phase(torch, setup),
-                         "(o)": tune_phase(torch, setup)}
-    event_source_phase()
-    rows_launches, _ = transport_phase(torch)
-    listen_launches, _ = listen_phase(torch)
+    with timed("(a)-(d)"):
+        launches, hists = main_path(torch, setup)
+        profile_training(torch, setup)
+        cpu_parity(torch, setup, hists)
+    with timed("(e)"):
+        serve_launches, _ = serving_phase(torch, setup)
+    with timed("(f)-(h)"):
+        lm, (lm_cfg, lm_params) = lm_serving_phase(torch, "mamba2-130m",
+                                                   "(f)")
+        prefill = prefill_phase(torch, lm_cfg, lm_params, "(g)")
+        del lm_params
+        torch.cuda.empty_cache()
+        lm_cpu_parity(torch, "mamba2-130m", 2, "(h)")
+    with timed("(i)-(k)"):
+        zl, (z_cfg, z_params) = lm_serving_phase(
+            torch, "zamba2-1.2b", "(i)", subset=ZAMBA_SUBSET)
+        zprefill = prefill_phase(torch, z_cfg, z_params, "(j)")
+        del z_params
+        torch.cuda.empty_cache()
+        lm_cpu_parity(torch, "zamba2-1.2b", 6, "(k)", subset=ZAMBA_SUBSET)
+    with timed("(l)"):
+        base_launches = baselines_phase(torch, setup)
+    with timed("(m)-(p)"):
+        scenario_launches = {"(m)": scale_phase(torch),
+                             "(n)": churn_phase(torch, setup),
+                             "(o)": tune_phase(torch, setup)}
+        event_source_phase()
+    with timed("(q)"):
+        rows_launches, _ = transport_phase(torch)
+        listen_launches, _ = listen_phase(torch)
     # the transport path's counts: (q1)'s window applies in this process,
     # (q2)'s cohort call and window apply in the serve child
     transport_launches = {"apply_rows": {"(q1)": rows_launches},
                           "apply_rows_q": {
                               "(q2)": listen_launches["apply_rows_q"]},
                           "ssd_fwd": {"(q2)": listen_launches["ssd_fwd"]}}
+    with timed("(r)-(t)"):
+        gl, gprefill = gemma2_phases(torch)
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -3315,6 +3693,12 @@ def run_phases(torch):
             entry["launches_prefill_per_call"] = {
                 k: v["flash_attention_fwd_launches_per_call"]
                 for k, v in zprefill.items()}
+            # gemma2-2b: (r)'s serving runs and (s)'s prefill calls
+            entry["launches_gemma2"] = {
+                k: v["flash_attention_fwd_launches"] for k, v in gl.items()}
+            entry["launches_gemma2_prefill_per_call"] = {
+                k: v["flash_attention_fwd_launches_per_call"]
+                for k, v in gprefill.items()}
         elif name not in LOCAL_STEPS:
             entry["launches_fig2_baselines"] = base_launches.get(name, 0)
             entry["launches_scenario"] = {
@@ -3324,13 +3708,18 @@ def run_phases(torch):
             entry["launches_lm_window_apply"] = {
                 label: sum(v["window_apply_launches"] for v in runs.values()
                            if v["window_apply_kernel"] == name)
-                for label, runs in (("(f)", lm), ("(i)", zl))}
+                for label, runs in (("(f)", lm), ("(i)", zl), ("(r)", gl))}
         kernels.append(entry)
     kernels[0]["immediate_apply_ms"] = imm_ms
     return card, kernels
 
 
 def main() -> int:
+    # compiled yardsticks (flex_attention) keep their caches in the
+    # checkout's build directory
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     try:
         import torch
     except ImportError:

@@ -1,12 +1,13 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``, as in
 ``src/repro/configs/__init__.py``.
 
-The registry holds the architectures the port runs (so far ``mamba2-130m``
-and the hybrid ``zamba2-1.2b``);
+The registry holds the architectures the port runs: ``mamba2-130m``, the
+hybrid ``zamba2-1.2b``, and the dense and vlm families (``gemma2-2b``,
+``codeqwen1.5-7b``, ``minitron-8b``, ``qwen1.5-110b``, ``internvl2-76b``);
 the paper's CNNs live in :mod:`repro_torch.configs.paper_models`.  The
-reference's other architectures raise ``NotImplementedError`` naming the
-ROADMAP item that brings their family, and an id neither package knows
-raises ``KeyError``.
+reference's moe and encdec architectures raise ``NotImplementedError``
+naming the ROADMAP item that brings their family, and an id neither package
+knows raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -15,24 +16,24 @@ from typing import Dict, List
 from repro_torch.configs.base import (ArchConfig, InputShape,  # noqa: F401
                                       INPUT_SHAPES, get_shape,
                                       reduce_for_smoke)
+from repro_torch.configs.codeqwen1p5_7b import CONFIG as _codeqwen
+from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+from repro_torch.configs.internvl2_76b import CONFIG as _internvl
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+from repro_torch.configs.minitron_8b import CONFIG as _minitron
+from repro_torch.configs.qwen1p5_110b import CONFIG as _qwen110
 from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
-_REGISTRY: Dict[str, ArchConfig] = {c.arch_id: c for c in (_mamba2,
-                                                           _zamba2)}
+_REGISTRY: Dict[str, ArchConfig] = {
+    c.arch_id: c for c in (_mamba2, _zamba2, _gemma2, _codeqwen, _minitron,
+                           _qwen110, _internvl)}
 
-_ATTN = ("ROADMAP.md Queue 1, LLM side: the dense slice (models/lm.py)")
 # the reference's other architectures, by the family slice that brings them
 _NOT_PORTED: Dict[str, str] = {
-    "codeqwen1.5-7b": _ATTN,
-    "gemma2-2b": _ATTN,
-    "minitron-8b": _ATTN,
-    "qwen1.5-110b": _ATTN,
     "deepseek-v3-671b": "ROADMAP.md Queue 1, LLM side: the moe slice "
                         "(models/moe.py, MLA attention)",
     "granite-moe-1b-a400m": "ROADMAP.md Queue 1, LLM side: the moe slice "
                             "(models/moe.py)",
-    "internvl2-76b": _ATTN + " and its vision stub",
     "whisper-large-v3": "ROADMAP.md Queue 1, LLM side: the encdec slice "
                         "(models/encdec.py)",
 }

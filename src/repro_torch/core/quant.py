@@ -36,7 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class QuantStack(NamedTuple):
@@ -57,13 +57,6 @@ def _div127(absmax: torch.Tensor) -> torch.Tensor:
                                  device=absmax.device)
 
 
-def _row_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-row absmax/127 over all trailing axes; shape ``[capacity]``."""
-    a = x.float().abs()
-    absmax = a.amax(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else a
-    return _div127(absmax)
-
-
 def _bcast(scale: torch.Tensor, ndim: int) -> torch.Tensor:
     return scale.reshape(tuple(scale.shape) + (1,) * (ndim - scale.dim()))
 
@@ -73,12 +66,60 @@ def _q(x32: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x32 / safe), -127, 127).to(torch.int8)
 
 
+# elements of a stacked leaf that the stack quantizer takes at a time: its
+# f32/f64 temporaries stay near 0.25-0.5 GB each however large the bank (4
+# rows of gemma2-2b's unembedding are 9.4 GB in f32, and whole-stack
+# temporaries of that size ran an 80 GB card out of memory)
+_BLOCK_ELEMS = 1 << 26
+
+
+def _fma_err(a, q, s):
+    # a − q·s rounded once, as XLA computes it (it contracts the product
+    # into an FMA): q·s is exact in f64 (8 + 24 significant bits), so the
+    # f64 difference rounded to f32 is the FMA's result unless that
+    # difference itself rounded onto an f32 tie (a second rounding)
+    return (a.double() - q.double() * s.double()).float()
+
+
+def _quantize_rows(x: torch.Tensor, r=None, err: bool = False):
+    """One stacked leaf ``x`` ``[M, ...]`` (plus the residual ``r`` of its
+    shape) → int8 codes, ``[M]`` scales and, with ``err``, the f32 error
+    ``adj − q·scale`` as XLA's FMA rounds it, where ``adj = x + r``.
+
+    Works in column blocks of at most _BLOCK_ELEMS elements and forms
+    ``adj`` block by block (once for the row absmax, once for the codes),
+    so no temporary spans the whole stack.  Every step is elementwise or a
+    max, so the numbers are those of one pass over the stack."""
+    M = x.shape[0]
+    x2 = x.reshape(M, -1)
+    r2 = None if r is None else r.reshape(x2.shape)
+    step = max(1, _BLOCK_ELEMS // max(M, 1))
+    blocks = [slice(j, j + step) for j in range(0, x2.shape[1], step)]
+
+    def adj(b):
+        a = x2[:, b].float()
+        return a if r2 is None else a + r2[:, b]
+    scale = _div127(torch.stack([adj(b).abs().amax(dim=1)
+                                 for b in blocks]).amax(dim=0))
+    s2 = scale[:, None]
+    q = torch.empty(x2.shape, dtype=torch.int8, device=x.device)
+    e = torch.empty(x2.shape, dtype=torch.float32, device=x.device) \
+        if err else None
+    for b in blocks:
+        a = adj(b)
+        q[:, b] = _q(a, s2)
+        if err:
+            e[:, b] = _fma_err(a, q[:, b], s2)
+    if err:
+        return q.reshape(x.shape), scale, e.reshape(x.shape)
+    return q.reshape(x.shape), scale
+
+
 def quantize_stack(tree) -> QuantStack:
     """``[capacity, ...]`` stacked tree → :class:`QuantStack`."""
-    scales = tree_map(_row_scale, tree)
-    q = tree_map(lambda x, s: _q(x.float(), _bcast(s, x.dim())), tree,
-                 scales)
-    return QuantStack(q, scales)
+    parts = [_quantize_rows(x) for x in tree_leaves(tree)]
+    return QuantStack(tree_unflatten(tree, [q for q, _ in parts]),
+                      tree_unflatten(tree, [s for _, s in parts]))
 
 
 def dequantize_stack(qstack: QuantStack):
@@ -99,20 +140,6 @@ def dequantize_tree(qtree: QuantTree):
     return tree_map(lambda q, s: q.float() * s, qtree.q, qtree.scales)
 
 
-def _fma_err(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor):
-    # a − q·s rounded once, as XLA computes it (it contracts the product
-    # into an FMA): q·s is exact in f64 (8 + 24 significant bits), so the
-    # f64 difference rounded to f32 is the FMA's result unless that
-    # difference itself rounded onto an f32 tie (a second rounding)
-    return (a.double() - q.double() * _bcast(s, q.dim()).double()).float()
-
-
-def _ef_body(adj):
-    qstack = quantize_stack(adj)
-    err = tree_map(_fma_err, adj, qstack.q, qstack.scales)
-    return qstack, quantize_stack(err)
-
-
 def ef_quantize_stack(raw, residual=None):
     """One error-feedback quantization step over a stacked buffer.
 
@@ -122,9 +149,17 @@ def ef_quantize_stack(raw, residual=None):
     is itself quantized for storage.  Returns ``(delta QuantStack, residual
     QuantStack)``.
     """
-    if residual is None:
-        return _ef_body(tree_map(lambda x: x.float(), raw))
-    return _ef_body(tree_map(lambda x, r: x.float() + r, raw, residual))
+    xs = tree_leaves(raw)
+    rs = tree_leaves(residual) if residual is not None else [None] * len(xs)
+    delta, res = [], []
+    for x, r in zip(xs, rs):
+        q, scale, e = _quantize_rows(x, r, err=True)
+        delta.append((q, scale))
+        res.append(_quantize_rows(e))
+        del e
+    return tuple(QuantStack(tree_unflatten(raw, [q for q, _ in parts]),
+                            tree_unflatten(raw, [s for _, s in parts]))
+                 for parts in (delta, res))
 
 
 def _take(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -154,9 +189,10 @@ class QuantizedBank:
     def rows(self, rows):
         """Dequantized f32 ``[len(rows), ...]`` gather on the device."""
         idx = _index(rows, tree_leaves(self.stacked.q)[0].device)
+        # one f32 temporary a leaf: the product is taken in place
         return tree_map(
-            lambda q, s: _take(q, idx).float() * _bcast(_take(s, idx),
-                                                       q.dim()),
+            lambda q, s: _take(q, idx).float().mul_(_bcast(_take(s, idx),
+                                                           q.dim())),
             self.stacked.q, self.stacked.scales)
 
     def row(self, i: int):

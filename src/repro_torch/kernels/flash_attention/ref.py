@@ -22,8 +22,11 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd); Hq % Hkv == 0 -> (B,S,Hq,hd)."""
+                  softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd); Hq % Hkv == 0 -> (B,S,Hq,hd).
+    Query row i sits at key position ``q_offset + i`` (0: the queries are
+    the keys' own positions; T - S: the last S rows of a sequence, held
+    against all its keys without the logits of the rows before)."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -32,7 +35,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     logits = logits * (hd ** -0.5)
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    qi = torch.arange(S, device=q.device)[:, None]
+    qi = q_offset + torch.arange(S, device=q.device)[:, None]
     kj = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
@@ -46,8 +49,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_tiles_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0, block_k: int = 128
-                        ) -> torch.Tensor:
+                        softcap: float = 0.0, block_k: int = 128,
+                        q_offset: int = 0) -> torch.Tensor:
     """The kernels' arithmetic, key tile by key tile (``block_k`` keys from
     key 0): scores as f32 sums of the exact products of q's and k's values
     (for bf16 inputs, what wgmma's f32 accumulators hold), scaled by
@@ -56,13 +59,13 @@ def attention_tiles_ref(q, k, v, *, causal: bool = True, window: int = 0,
     exactly 0); l sums the f32 weights, while P·V takes the weights rounded
     to v's dtype (bf16 pairs in wgmma's register fragment; no rounding in
     f32); out = acc / l in q's dtype.  q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd)
-    -> (B,S,Hq,hd)."""
+    -> (B,S,Hq,hd); ``q_offset`` as in :func:`attention_ref`."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     dev = q.device
     qf = q.float().reshape(B, S, Hkv, group, hd)
-    qi = torch.arange(S, device=dev)[:, None]
+    qi = q_offset + torch.arange(S, device=dev)[:, None]
     inf = float("inf")
     m = torch.full((B, Hkv, group, S), -inf, device=dev)
     l = torch.zeros((B, Hkv, group, S), device=dev)

@@ -26,8 +26,9 @@ server is wrapped in a :class:`repro_torch.serving.transport.TransportServer`
 (wire protocol v1, the JAX package's) and other processes drive
 personalization over the socket with either package's ``TransportClient``:
 submit a token batch shaped as the loss expects (``{"tokens": int32[1, L],
-"labels": int32[1, L]}``, L a multiple of the SSM chunk, see
-``_user_batch``), poll the head back, fetch it again with HEAD.
+"labels": int32[1, L]}``, L a multiple of the SSM chunk, plus a vlm
+arch's ``visual`` leaf, see ``_user_batch``), poll the head back, fetch it
+again with HEAD.
 ``--flush-ms`` bounds queueing latency, ``--window-ms`` advances the
 aggregation window on a wall clock, ``--max-inflight`` is the backpressure
 bound and ``--serve-seconds`` stops the server (default: until
@@ -52,6 +53,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -76,11 +78,18 @@ def _personalize_len(cfg, n: int) -> int:
 
 
 def _user_batch(cfg, seed: int, length: int):
-    """One user's personalization stream (numpy int32 leaves with batch dim
-    1; the cohort engine stacks them and copies each leaf to the device
-    once).  The reference's ``visual``/``frames`` leaves belong to families
-    that are not ported yet."""
-    return synthetic_token_batch(seed, 1, length, cfg.vocab)
+    """One user's personalization stream (numpy leaves with batch dim 1:
+    int32 tokens and labels, and for a vlm arch the reference's zero
+    ``visual`` leaf (1, n_visual_tokens, d_model), f32 here, since numpy has
+    no bf16 and ``lm_hidden`` casts it to the activation dtype; the cohort
+    engine stacks them and copies each leaf to the device once).  The
+    reference's encdec ``frames`` leaf belongs to a family that is not
+    ported yet."""
+    batch = synthetic_token_batch(seed, 1, length, cfg.vocab)
+    if cfg.n_visual_tokens:
+        batch["visual"] = np.zeros((1, cfg.n_visual_tokens, cfg.d_model),
+                                   np.float32)
+    return batch
 
 
 def make_prefill(cfg):
@@ -226,7 +235,8 @@ class ServeRun:
     """What one :func:`main` run built and measured: the JSON ``record``
     it wrote, the server (``None`` without ``--personalize``), the global
     params, the users' streams and heads, the prompt and decoded tokens,
-    and the wall seconds of the personalization (submit + flush, synced)
+    and the wall seconds of the params' init (drawn on the host, moved to
+    the device, synced), of the personalization (submit + flush, synced)
     and of the decode."""
     cfg: object
     params: dict
@@ -239,6 +249,7 @@ class ServeRun:
     out_tokens: Optional[torch.Tensor] = None
     personalize_s: Optional[float] = None
     decode_s: float = 0.0
+    init_s: float = 0.0
 
 
 def _sync(dev: torch.device) -> None:
@@ -308,13 +319,17 @@ def main(argv=None) -> ServeRun:
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     gen = torch.Generator().manual_seed(args.seed)
+    t0 = time.perf_counter()
     params = api.init_params(cfg, gen, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
 
     B = args.requests
     max_len = args.prompt_len + args.tokens
     prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
                            generator=gen, dtype=torch.int32).to(dev)
-    run = ServeRun(cfg=cfg, params=params, record={}, prompt=prompt)
+    run = ServeRun(cfg=cfg, params=params, record={}, prompt=prompt,
+                   init_s=init_s)
 
     subset_spec = None
     if args.personalize:
@@ -332,6 +347,9 @@ def main(argv=None) -> ServeRun:
                                        personal_subset=subset_spec,
                                        delta_dtype=args.delta_dtype,
                                        device=dev)
+        # the server holds its own copy of the params: decode and the
+        # caller read that one, so one copy lives on the device
+        params = run.params = server.state.params
         run.server = server
         if args.listen is not None:
             _serve_transport(args, server)

@@ -22,7 +22,7 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
-    """One-token decode with the SSM cache (decode_32k / long_500k)."""
+    """One-token decode with the KV/SSM cache (decode_32k / long_500k)."""
     def serve_step(params, cache, tokens, pos):
         return api.decode_step(cfg, params, cache, tokens, pos)
 

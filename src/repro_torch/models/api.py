@@ -7,9 +7,11 @@ by PersA-FL core, the launch layer and the tests.
     init_cache(cfg, params, batch, ...)    -> decode cache
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
 
-So far the pure-SSM family (mamba2-130m) and the hybrid family (zamba2-1.2b)
-are ported, both through :mod:`repro_torch.models.ssm_lm`; the others raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Ported: the pure-SSM (mamba2-130m) and hybrid (zamba2-1.2b) families
+through :mod:`repro_torch.models.ssm_lm`, the dense and vlm families
+(gemma2-2b, codeqwen1.5-7b, minitron-8b, qwen1.5-110b, internvl2-76b)
+through :mod:`repro_torch.models.lm`.  The moe and encdec (audio) families
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -18,20 +20,21 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import ssm_lm
+from repro_torch.models import lm, ssm_lm
 from repro_torch.models.layers import unembed
 
 _ITEMS = {
-    "dense": "the dense slice (models/lm.py)",
-    "vlm": "the dense slice (models/lm.py with its vision stub)",
     "moe": "the moe slice (models/moe.py)",
     "audio": "the encdec slice (models/encdec.py)",
 }
 
 
-def _family(cfg: ArchConfig) -> None:
-    if cfg.family in ("ssm", "hybrid") and not cfg.is_encdec:
-        return
+def _is_ssm(cfg: ArchConfig) -> bool:
+    """True for the families of ``ssm_lm``, False for those of ``lm``;
+    raises for a family not ported yet."""
+    if not cfg.is_encdec and cfg.family in ("ssm", "hybrid", "dense",
+                                             "vlm"):
+        return cfg.family in ("ssm", "hybrid")
     item = _ITEMS.get("audio" if cfg.is_encdec else cfg.family,
                       f"its family slice ({cfg.family})")
     raise NotImplementedError(
@@ -41,32 +44,37 @@ def _family(cfg: ArchConfig) -> None:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> Dict:
-    _family(cfg)
-    return ssm_lm.init_ssm_lm(cfg, generator, device)
+    if _is_ssm(cfg):
+        return ssm_lm.init_ssm_lm(cfg, generator, device)
+    return lm.init_lm(cfg, generator, device)
 
 
 def loss_fn(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
     """The client loss f_i(w; D_i) -- Eq. (2) of the paper, per arch."""
-    _family(cfg)
-    return ssm_lm.ssm_lm_loss(cfg, params, batch)
+    if _is_ssm(cfg):
+        return ssm_lm.ssm_lm_loss(cfg, params, batch)
+    return lm.lm_loss(cfg, params, batch)
 
 
 def prefill_logits(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
     """Inference-prefill: full forward, last-position logits (B, V)."""
-    _family(cfg)
-    h = ssm_lm.ssm_lm_hidden(cfg, params, batch["tokens"],
-                             window=cfg.sliding_window)
+    if _is_ssm(cfg):
+        h = ssm_lm.ssm_lm_hidden(cfg, params, batch["tokens"],
+                                 window=cfg.sliding_window)
+    else:
+        h, _ = lm.lm_hidden(cfg, params, batch["tokens"],
+                            batch.get("visual"))
     return unembed(params["embed"], h[:, -1:, :], cfg.final_softcap)[:, 0]
 
 
 def init_cache(cfg: ArchConfig, params, batch: Dict, max_len: int, dtype):
     """Decode cache on the device of ``batch["tokens"]``."""
-    _family(cfg)
     tokens = batch["tokens"]
-    return ssm_lm.init_ssm_cache(cfg, tokens.shape[0], max_len, dtype,
-                                 tokens.device)
+    init = ssm_lm.init_ssm_cache if _is_ssm(cfg) else lm.init_lm_cache
+    return init(cfg, tokens.shape[0], max_len, dtype, tokens.device)
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos):
-    _family(cfg)
-    return ssm_lm.ssm_lm_decode_step(cfg, params, cache, tokens, pos)
+    if _is_ssm(cfg):
+        return ssm_lm.ssm_lm_decode_step(cfg, params, cache, tokens, pos)
+    return lm.lm_decode_step(cfg, params, cache, tokens, pos)

@@ -160,6 +160,25 @@ def test_attention_ref_without_causal_mask():
     _holds(got, want, TOL["f32"], causal)
 
 
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (16, 5.0)])
+def test_plain_versions_take_the_last_rows_by_q_offset(window, cap):
+    """``q_offset`` puts the queries at the keys' last positions: the last
+    rows held against all keys (or their windows' keys) give the rows of
+    the whole computation, in both plain versions."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 96, 4, 2, 32, seed=5))
+    kw = dict(causal=True, window=window, softcap=cap)
+    whole = attention_ref(q, k, v, **kw)[:, -24:]
+    L = window + 24 if window else 96
+    assert torch.allclose(attention_ref(q[:, -24:], k[:, -L:], v[:, -L:],
+                                        q_offset=L - 24, **kw), whole,
+                          atol=1e-6, rtol=0)
+    tiles = attention_tiles_ref(q[:, -24:], k[:, -L:], v[:, -L:],
+                                q_offset=L - 24, block_k=16, **kw)
+    _holds(tiles, whole, 2e-6)
+    assert not torch.allclose(attention_ref(q[:, -24:], k, v, **kw), whole,
+                              atol=1e-3)
+
+
 def test_ops_modes_and_kernel_wrapper_refuse_cpu_tensors():
     q, k, v = map(torch.from_numpy, _inputs(1, 64, 4, 4, 64))
     ref = attention_ref(q, k, v, window=16)

@@ -57,7 +57,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.kernels.flash_attention.ref",
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.models.attention",
+                 "repro_torch.models.attention", "repro_torch.models.lm",
+                 "repro_torch.configs.gemma2_2b",
+                 "repro_torch.configs.codeqwen1p5_7b",
+                 "repro_torch.configs.minitron_8b",
+                 "repro_torch.configs.qwen1p5_110b",
+                 "repro_torch.configs.internvl2_76b",
                  "repro_torch.launch.steps", "repro_torch.launch.serve",
                  "repro_torch.fl.algorithms", "repro_torch.fl.simulator",
                  "repro_torch.fl.scenario", "repro_torch.fl.scenario.spec",

@@ -40,7 +40,7 @@ from repro_torch.core.types import ServerState
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ops
 from repro_torch.kernels.fused_update import ref as R
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 ROWS_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
@@ -228,6 +228,34 @@ def _check_stack(tq_stack, jq_stack, src):
         ties += _assert_codes(g, w, np.asarray(x, np.float32),
                               np.asarray(js).reshape(bshape))
     return ties
+
+
+def test_fma_err_in_column_blocks_is_bit_equal(monkeypatch):
+    """A leaf larger than ``_BLOCK_ELEMS`` is quantized in column blocks
+    (row absmax, codes, the FMA error and the residual's codes, with and
+    without a carried residual), with the same bits as in one pass; a
+    1-d stack too."""
+    rs = np.random.RandomState(0)
+    raw = {"x": torch.from_numpy((rs.randn(3, 5, 7) * 1e-3)
+                                 .astype(np.float32)),
+           "y": torch.from_numpy(rs.randn(3).astype(np.float32))}
+    res = tree_map(lambda x: 0.3 * torch.from_numpy(
+        rs.randn(*x.shape).astype(np.float32)) * x.abs().max(), raw)
+    for residual in (None, res):
+        whole = tq.ef_quantize_stack(raw, residual)
+        with monkeypatch.context() as m:
+            m.setattr(tq, "_BLOCK_ELEMS", 8)
+            blocked = tq.ef_quantize_stack(raw, residual)
+        for a, b in zip(tree_leaves(blocked), tree_leaves(whole)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        # the residual codes are not all zero: the error moved
+        assert bool((whole[1].q["x"] != 0).any())
+    with monkeypatch.context() as m:
+        m.setattr(tq, "_BLOCK_ELEMS", 4)
+        blocked = tq.quantize_stack(raw)
+    for a, b in zip(tree_leaves(blocked),
+                    tree_leaves(tq.quantize_stack(raw))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

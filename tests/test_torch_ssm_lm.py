@@ -97,18 +97,26 @@ def _port_config(jcfg):
 
 
 def test_config_registry():
-    assert configs.list_archs() == ["mamba2-130m", "zamba2-1.2b"]
+    assert configs.list_archs() == [
+        "codeqwen1.5-7b", "gemma2-2b", "internvl2-76b", "mamba2-130m",
+        "minitron-8b", "qwen1.5-110b", "zamba2-1.2b"]
     for arch in configs.list_archs():
         cfg = configs.get_config(arch)
         jcfg = jconfigs.get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.activation_dtype == torch.bfloat16
         assert base.reduce_for_smoke(cfg).activation_dtype == torch.float32
-    # every other reference arch names the slice that brings it
-    for arch in jconfigs.list_archs():
-        if arch in configs.list_archs():
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    # every other reference arch (moe, encdec) names the slice that brings
+    # it
+    others = [a for a in jconfigs.list_archs()
+              if a not in configs.list_archs()]
+    assert others == ["deepseek-v3-671b", "granite-moe-1b-a400m",
+                      "whisper-large-v3"]
+    for arch in others:
+        slice_name = "encdec" if arch.startswith("whisper") else "moe"
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1, LLM side: the "
+                                 f"{slice_name} slice"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
         configs.get_config("mamba2-13om")
@@ -266,18 +274,27 @@ def test_decode_steps_match_reference(smoke):
 
 
 def test_hybrid_and_other_families_raise():
-    """The hybrid family is ported (it builds the shared block); the dense,
-    vlm and audio families still raise, naming their slices."""
+    """The hybrid family is ported (it builds the shared block), and so are
+    the dense and vlm families (``models/lm.py``); the moe and audio
+    families still raise, naming their slices."""
     cfg = base.reduce_for_smoke(configs.get_config("mamba2-130m"))
     hybrid = dataclasses.replace(cfg, family="hybrid", attn_every=2,
                                  n_heads=4, n_kv_heads=4, head_dim=32,
                                  d_ff=512)
     params = api.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
     assert sorted(params["shared"]) == ["attn", "ln_in", "ln_mlp", "mlp"]
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        api.loss_fn(dataclasses.replace(cfg, family="dense"), {}, {})
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        api.init_params(dataclasses.replace(cfg, family="vlm"),
+    dense = dataclasses.replace(hybrid, family="dense", ssm=None,
+                                attn_every=0)
+    params = api.init_params(dense, torch.Generator().manual_seed(0), "cpu")
+    assert sorted(params) == ["embed", "final_norm", "layers"]
+    assert sorted(params["layers"]) == ["attn", "ln1", "ln2", "mlp"]
+    vlm = dataclasses.replace(dense, family="vlm", n_visual_tokens=4)
+    params = api.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
+    assert tuple(params["vis_proj"].shape) == (vlm.d_model, vlm.d_model)
+    with pytest.raises(NotImplementedError, match="moe slice"):
+        api.loss_fn(dataclasses.replace(dense, family="moe"), {}, {})
+    with pytest.raises(NotImplementedError, match="moe slice"):
+        api.init_params(dataclasses.replace(dense, family="moe"),
                         torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="encdec slice"):
         api.init_params(dataclasses.replace(cfg, family="audio",

@@ -32,8 +32,12 @@ Phases; any failure exits non-zero and prints no result line:
      hd 128 MQA and hd 128 softcap cases, and gemma2-2b's bf16 hd-256
      shapes: (8, 4096) and (1, 32768) with its window of 4096 and
      without, (r)'s cohort (4, 128), one partial tile (2, 8) and a tail at
-     S = 1000 with a window of 300).  The library time of a case with a
-     softcap is a compiled ``flex_attention`` call's, SDPA's otherwise.
+     S = 1000 with a window of 300; and an hd-256 MQA case without a
+     softcap).  The library time of a case with a softcap is a compiled
+     ``flex_attention`` call's, SDPA's otherwise; a softcap case is also
+     timed with the cap off (``ms_no_softcap``), and every row carries its
+     kernel's registers and spills from nvcc's ``-Xptxas -v`` report (the
+     wgmma kernel must not spill).
      Each case also shows that a
      no-op (a zero output for the scan) and a sign-flipped result fail the same
      check, each per-row case that row 0's a_log for every row does, each
@@ -74,8 +78,8 @@ Phases; any failure exits non-zero and prints no result line:
      FLOPs over the card's peak for the operands' type (for ``ssd_fwd`` and
      ``flash_attention_fwd``: 989 TFLOP/s on the bf16 tensor cores, 67
      TFLOP/s in f32 outside them), with the f32 CUDA-core bound, the
-     ceiling of a design that multiplies on the CUDA cores (the f32 paths,
-     bf16 ``flash_attention_fwd`` at hd 256), beside it; ``library_ms``
+     ceiling of a design that multiplies on the CUDA cores (the f32
+     paths), beside it; ``library_ms``
      times one PyTorch call that
      computes the same function (a yardstick the port never calls; none
      exists for the scan, for attention with a softcap, for ``prox_inner``
@@ -196,8 +200,9 @@ Phases; any failure exits non-zero and prints no result line:
      Reports req/s over the socket and in-process, their ratio beside the
      row's 1.5 (not gated), p50/p99 submit→head and body bytes.  (q2)
      ``python -m repro_torch.launch.serve --arch mamba2-130m --listen 0
-     --personal-subset embed/unembed --delta-dtype int8`` as a child on
-     the card for LISTEN_SECONDS, driven from here by 4 users (one
+     --personal-subset embed/unembed --delta-dtype int8 --flush-ms
+     1000`` as a child on the card for LISTEN_SECONDS, driven from here by
+     4 users submitting together (one
      ``codec="int8"``): 4 heads done, the subset stamped, ``codec`` int8
      only for that client, HEAD's body equal to POLL's, one ADVANCE,
      STATS with one cohort call and 0 host materializations, the child's
@@ -237,6 +242,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1264,7 +1270,8 @@ FLASH_TOL = {"f32": dict(atol=2e-5, rtol=2e-5),
 # its global layers run it; (r)'s cohort shape (4 users x 128 tokens, the
 # window wider than the stream), one partial 8-row tile (2 streams of 8
 # tokens), and a tail (S not a multiple of the kernel's 64-row tile) with a
-# window.
+# window.  Last, bf16 hd 256 without a softcap and with MQA (8 query heads on
+# one kv head): the uncapped branch and Hkv = 1 on the wgmma kernel.
 FLASH_CASES = (
     (4, 128, 32, 32, 64, "bf16", 4096, 0.0),
     (2, 4096, 32, 32, 64, "f32", 1024, 0.0),
@@ -1286,6 +1293,7 @@ FLASH_CASES = (
     (4, 128, 8, 4, 256, "bf16", 4096, 5.0),
     (2, 8, 8, 4, 256, "bf16", 4096, 5.0),
     (1, 1000, 8, 4, 256, "bf16", 300, 5.0),
+    (1, 2048, 8, 1, 256, "bf16", 0, 0.0),
 )
 FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # past this length the plain version's logits do not fit: the case is
@@ -1295,11 +1303,6 @@ FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # FLASH_EDGE keys, which hold their whole windows, or on all keys without a
 # window)
 FLASH_PLAIN_MAX_S, FLASH_EDGE = 8192, 256
-# the bf16 hd-256 kernel runs on the CUDA cores: 25 ms a call at (8, 4096)
-# and 192 ms at (1, 32768) without a window on an H100, so its long
-# shapes are timed over 3 calls a run, as the cases past FLASH_PLAIN_MAX_S
-# are
-FLASH_SLOW_S = 4096
 # above this many bytes of f32 logits (B·Hq·S²·4) the plain versions run one
 # batch row at a time: attention_ref at (8, 4096, 32 heads) would hold
 # several 17 GB tensors at once
@@ -1391,6 +1394,35 @@ def flex_library(torch, q, k, v, window, cap):
 
 
 _FLEX = None
+
+
+def ptxas_report(lib: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of the kernel of library
+    ``lib`` whose mangled name holds ``kernel``, from nvcc's ``-Xptxas -v``
+    report kept beside the library, and ptxas' warnings that name it
+    ("wgmma ... serialized" among them).  None where the report lacks it."""
+    from repro_torch.kernels import _build
+    out = {"kernel": kernel, "registers": None, "stack_frame": None,
+           "spill_stores": None, "spill_loads": None}
+    log = _build.library_path(lib).with_suffix(".log")
+    lines = log.read_text().splitlines() if log.is_file() else []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or kernel not in line:
+            continue
+        for nxt in lines[i + 1:i + 6]:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", nxt)
+            if m:
+                out.update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", nxt)
+            if m:
+                out["registers"] = int(m[1])
+                break
+        break
+    out["warnings"] = [ln.strip() for ln in lines
+                       if "warning" in ln and kernel in ln]
+    return out
 
 
 def flash_kernel_phase(torch):
@@ -1515,8 +1547,9 @@ def flash_kernel_phase(torch):
         nbytes = 2 * q.numel() * q.element_size() \
             + 2 * k.numel() * k.element_size()
         flops = 4 * B * Hq * hd * live_pairs(S, window)
-        few = 3 if long or (hd == 256 and dname == "bf16"
-                            and S >= FLASH_SLOW_S) else 20
+        # past FLASH_PLAIN_MAX_S the yardsticks take tens of ms a call
+        # (SDPA's masked call at (1, 32768): ~96 ms): 3 calls a run
+        few = 3 if long else 20
         lib_err = lib_note = lib_compile_s = None
         if cap:
             lib_name = "torch.nn.attention.flex_attention (compiled)"
@@ -1542,13 +1575,18 @@ def flash_kernel_phase(torch):
                     lib_out = lib_out[:, -FLASH_EDGE:]
                 lib_err = float((lib_out.float() - want).abs().max())
                 del lib_out
+        # with a softcap, the kernel also with the cap off (the cost of
+        # the tanh on every score), the two timed in turns
+        times = time_interleaved(torch, {
+            "ms": lambda: K.flash_attention_fwd(q, k, v, **kw),
+            "ms_no_softcap": (lambda: K.flash_attention_fwd(
+                q, k, v, causal=True, window=window)) if cap else None},
+            launches=few, repeats=5)
         row = {"shape": label, "max_abs_err": err, "tol": tol,
                "tiles_max_abs_err": tiles_err, "tiles_block_k": block_k,
                "zero_err": float(want.abs().max()),
                "no_window_err": nowin_err, "no_softcap_err": nocap_err,
-               "mean_abs_out": out_abs,
-               "ms": time_ms(torch, lambda: K.flash_attention_fwd(
-                   q, k, v, **kw), launches=few),
+               "mean_abs_out": out_abs, **times,
                "plain_ms": time_ms(torch, plain, launches=1, repeats=3,
                                    warmup=1),
                "plain_checked": plain_note,
@@ -1558,9 +1596,29 @@ def flash_kernel_phase(torch):
                "library_compile_s": lib_compile_s,
                "library_max_abs_err": lib_err, "library_note": lib_note}
         row.update(bound_fields(torch, q.dtype, nbytes, flops, row["ms"]))
+        wgmma = dname == "bf16"
+        # the wgmma kernel has an instance with and one without the cap
+        row["ptxas"] = ptxas_report(
+            "flash_attention",
+            f"flash_attention_fwd_wgmmaILi{hd}ELb{int(cap > 0)}EE" if wgmma
+            else f"flash_attention_fwd_kernelILi{hd}EE")
+        if wgmma:
+            ptx = row["ptxas"]
+            check(ptx["registers"] is not None and ptx["spill_stores"] == 0
+                  and ptx["spill_loads"] == 0,
+                  f"flash_attention_fwd {label}: the wgmma kernel at hd "
+                  f"{hd} spills or has no ptxas report: {ptx}")
         rows.append(row)
         print(f"kernel flash_attention_fwd {label}: {json.dumps(row)}",
               flush=True)
+        if hd == 256:
+            ptx = row["ptxas"]
+            print(f"flash hd256 {label}: {row['ms']:.4g} ms, bound "
+                  f"{row['bound_ms']:.4g} ms ({100 * row['bound_share']:.1f}%"
+                  f" of it), no softcap {row.get('ms_no_softcap')}, library "
+                  f"{row['library_ms']}, {ptx['kernel']} {ptx['registers']} "
+                  f"registers, spills {ptx['spill_stores']} / "
+                  f"{ptx['spill_loads']} bytes", flush=True)
         del q, k, v, got, pairs, tile_pairs, nowin, nocap, want, lib
     torch.cuda.empty_cache()
     return rows
@@ -3142,6 +3200,10 @@ WIRE_PCFG = dict(option="C", lam=20.0, inner_steps=5, inner_eta=0.05,
 # (q2): mamba2-130m over the socket; its fp32 head (~670 MB) exceeds
 # MAX_FRAME_BYTES, embed/unembed (154,460,160 bytes) does not
 LISTEN_SUBSET, LISTEN_USERS, LISTEN_SECONDS = "embed/unembed", 4, 30.0
+# the child's flush deadline: the users submit together and must make one
+# cohort whatever the host's speed (at the default 10 ms a loaded host has
+# split them 3 + 1)
+LISTEN_FLUSH_MS = 1000.0
 LISTEN_START_S = 180.0           # the child's imports and init, at most
 
 # the second OS process of (q1): the port's AsyncTransportClients, one
@@ -3435,7 +3497,7 @@ def listen_phase(torch, device="cuda", smoke=False):
             "mamba2-130m", "--listen", "0", "--personal-subset",
             LISTEN_SUBSET, "--delta-dtype", "int8", "--serve-seconds",
             str(LISTEN_SECONDS), "--requests", str(LISTEN_USERS),
-            "--device", str(device)]
+            "--flush-ms", str(LISTEN_FLUSH_MS), "--device", str(device)]
     if smoke:
         argv.append("--smoke")
 

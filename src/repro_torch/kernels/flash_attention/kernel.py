@@ -10,11 +10,12 @@ once per invocation and forward evaluation.  It is CUDA C++ for ``sm_90a``
 in ``repro_torch/csrc/flash_attention.cu``, built by
 :mod:`repro_torch.kernels._build` at first use; the source note says what
 bounds it (operations, at the bf16 tensor cores' 989 TFLOP/s) and what the
-design does about it.  bf16 at head dims 64 and 128 (:data:`WGMMA_HEAD_DIMS`)
+design does about it.  bf16, at every head dim (:data:`WGMMA_HEAD_DIMS`),
 runs ``flash_attention_fwd_wgmma``: wgmma products fed by TMA through a ring
-of K/V tiles of :data:`WGMMA_BLOCK_K` keys.  f32, and bf16 at head dim 256,
-run ``flash_attention_fwd_kernel`` on the CUDA cores, with key tiles of
-:data:`TILE`.  :func:`key_tile` says which tile a call walks, the
+of K/V tiles of :data:`WGMMA_BLOCK_K` keys, 128 at head dims 64 and 128 and
+64 at 256 (gemma2's, whose 128-key tiles would not fit shared memory).
+f32 runs ``flash_attention_fwd_kernel`` on the CUDA cores, with key tiles
+of :data:`TILE`.  :func:`key_tile` says which tile a call walks, the
 ``block_k`` of the plain model ``ref.attention_tiles_ref``.
 
 The wrapper checks its inputs and raises on anything the kernel does not
@@ -46,14 +47,15 @@ LAUNCHES = {"flash_attention_fwd": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
 TILE = 64                      # CUDA-core kernel: query and key rows a tile
-WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma kernel
-WGMMA_BLOCK_K = 128            # its key rows a tile (and query rows a block)
+WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims on the wgmma kernel
+WGMMA_BLOCK_Q = 128            # its query rows a block
+WGMMA_BLOCK_K = {64: 128, 128: 128, 256: 64}  # its key rows a tile, by hd
 
 
 def key_tile(dtype: torch.dtype, head_dim: int) -> int:
     """Key rows a tile of the kernel that runs ``dtype`` at ``head_dim``."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return WGMMA_BLOCK_K
+        return WGMMA_BLOCK_K[head_dim]
     return TILE
 
 
@@ -130,12 +132,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention_fwd: window {window} and softcap "
                          f"{softcap} must be >= 0")
-    if B > 65535 or Hq > 65535 or S > 2 ** 31 - WGMMA_BLOCK_K:
+    if B > 65535 or Hq > 65535 or S > 2 ** 31 - WGMMA_BLOCK_Q:
         raise ValueError(f"flash_attention_fwd: B = {B} and Hq = {Hq} must "
                          f"be at most 65535 (grid limits), S = {S} below "
                          f"2^31")
-    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: bf16 q, k and v must start "
                          "on a 16-byte boundary (TMA tensor maps)")
     out = torch.empty_like(q)

@@ -50,10 +50,13 @@ CASES = [
     (2, 128, 2, 2, 128, 64, 50.0),
 ]
 # windows of 200 and 300 keys across key tiles of 64 and 128, GQA 2:1 and
-# 4:1; rows whose first tiles are wholly masked
+# 4:1; rows whose first tiles are wholly masked; gemma2's head dim 256 with
+# GQA 2:1 and a softcap of 5, its window of 200 across several of the bf16
+# kernel's 64-key tiles
 TILE_CASES = [
     (1, 512, 4, 2, 64, 200, 0.0),
     (1, 384, 8, 2, 128, 300, 5.0),
+    (1, 384, 8, 4, 256, 200, 5.0),
 ]
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -145,11 +148,15 @@ def test_attention_tiles_ref_tile_size_moves_f32_by_rounding_only(block_k):
 
 
 def test_key_tile_follows_the_kernel_dispatch():
-    assert K.key_tile(torch.bfloat16, 64) == K.WGMMA_BLOCK_K == 128
-    assert K.key_tile(torch.bfloat16, 128) == 128
-    assert K.key_tile(torch.bfloat16, 256) == K.TILE == 64
+    """bf16 runs the wgmma kernel at every head dim, with 128-key tiles at
+    hd 64 and 128 and 64-key tiles at hd 256; f32 runs the CUDA-core
+    kernel's 64-key tiles."""
+    assert K.WGMMA_HEAD_DIMS == K.HEAD_DIMS == (64, 128, 256)
+    assert K.key_tile(torch.bfloat16, 64) == K.WGMMA_BLOCK_K[64] == 128
+    assert K.key_tile(torch.bfloat16, 128) == K.WGMMA_BLOCK_K[128] == 128
+    assert K.key_tile(torch.bfloat16, 256) == K.WGMMA_BLOCK_K[256] == 64
     for hd in K.HEAD_DIMS:
-        assert K.key_tile(torch.float32, hd) == 64
+        assert K.key_tile(torch.float32, hd) == K.TILE == 64
 
 
 def test_attention_ref_without_causal_mask():

@@ -32,8 +32,10 @@ Phases; any failure exits non-zero and prints no result line:
      hd 128 MQA and hd 128 softcap cases, and gemma2-2b's bf16 hd-256
      shapes: (8, 4096) and (1, 32768) with its window of 4096 and
      without, (r)'s cohort (4, 128), one partial tile (2, 8) and a tail at
-     S = 1000 with a window of 300; and an hd-256 MQA case without a
-     softcap).  The library time of a case with a softcap is a compiled
+     S = 1000 with a window of 300; an hd-256 MQA case without a
+     softcap; and granite-moe-1b-a400m's prefill shapes, bf16 GQA 16/8 of
+     64, causal with no window, at (8, 4096) and (1, 32768), and at
+     (u)'s cohort (4, 128)).  The library time of a case with a softcap is a compiled
      ``flex_attention`` call's, SDPA's otherwise; a softcap case is also
      timed with the cap off (``ms_no_softcap``), and every row carries its
      kernel's registers and spills from nvcc's ``-Xptxas -v`` report (the
@@ -54,8 +56,9 @@ Phases; any failure exits non-zero and prints no result line:
      the CNN's 8 leaves, at LOCAL_CASES (n = 2^26+3; f32, bf16, f32 with
      bf16 other operands) and at the full param trees of mamba2-130m (12
      leaves) and zamba2-1.2b (21 leaves), f32.  The window applies of (f),
-     (i) and (r) at M = 4: mamba2's 12 leaves, zamba2's 10 personal ones
-     and gemma2's unembedding (589,824,000 params).  Every checked call's
+     (i), (r) and (u) at M = 4: mamba2's 12 leaves, zamba2's 10 personal
+     ones, gemma2's unembedding (589,824,000 params) and granite's
+     (50,334,720 params).  Every checked call's
      launches are counted (zeroed just before, read just after) and must
      be the planned count: every fused-update kernel takes a table of
      leaves (TABLE_KERNELS), one launch per dtype combination of a leaf's
@@ -228,6 +231,33 @@ Phases; any failure exits non-zero and prints no result line:
      of the config outside it, and the subset heads of one mode-C flush of
      2 users within LM_HEAD_TOL; codeqwen1.5-7b at 2 layers with non-zero
      QKV biases, ``prefill_logits`` only.
+
+ 12. the moe family (``models/moe.py``, MLA) -- (u) granite-moe-1b-a400m's
+     ``launch.serve.main`` at full width (1,384,963,072 params in 13
+     leaves, drawn on the host), GRANITE_USERS = 4 users on
+     GRANITE_PLEN = 128-token streams, ``--personal-subset
+     embed/unembed``, fp32 then int8, as (r) otherwise:
+     ``flash_attention_fwd`` launched 24 times per forward evaluation (one
+     per layer, causal, no window), the window apply one ``apply_rows`` /
+     ``apply_rows_q`` launch, and the (token, slot) pairs capacity drops
+     in a forward of the cohort's batch at the global params, one group of
+     128 tokens a user (C = 40), as the vmapped cohort forward groups them.
+     (v) prefill as (s), 2 timed calls a shape, 24 launches per call, its
+     device time split into elementwise passes, GEMMs,
+     ``flash_attention_fwd`` and the MoE's routing and dispatch kernels
+     (sort, scan, scatter, gather, index_select), each named.  (w)
+     card against CPU, f32: granite at 2 layers at (2, 256), where
+     capacity binds, ``prefill_logits`` within LM_PREFILL_TOL, the same
+     count of dropped pairs on both sides, and the subset heads of one
+     mode-C flush of 2 users within LM_HEAD_TOL; deepseek-v3-671b cut to
+     DEEPSEEK_CUT (1 dense-prefix layer, 1 MoE layer of 16 of its 256
+     experts and its shared expert, the MTP block; every width published:
+     45 leaves, 3,706,691,584 params, drawn on the card by the port's own
+     init from a CUDA generator and copied to the host) at (1, 128): the
+     loss with its aux
+     and 0.1 x MTP terms and ``prefill_logits`` within LM_PREFILL_TOL, and
+     8 absorbed-MLA decode steps on the card against the card's prefill
+     logits within DECODE_TOL; no kernel launches in (w)'s deepseek part.
 
 Each group of phases prints its seconds (``phase <label>: <s> s``).
 
@@ -1270,8 +1300,10 @@ FLASH_TOL = {"f32": dict(atol=2e-5, rtol=2e-5),
 # its global layers run it; (r)'s cohort shape (4 users x 128 tokens, the
 # window wider than the stream), one partial 8-row tile (2 streams of 8
 # tokens), and a tail (S not a multiple of the kernel's 64-row tile) with a
-# window.  Last, bf16 hd 256 without a softcap and with MQA (8 query heads on
-# one kv head): the uncapped branch and Hkv = 1 on the wgmma kernel.
+# window.  Then bf16 hd 256 without a softcap and with MQA (8 query heads on
+# one kv head): the uncapped branch and Hkv = 1 on the wgmma kernel.  Last,
+# granite-moe-1b-a400m's prefill shapes of (v): 16 query heads on 8 kv
+# heads of 64, causal with no window, at (8, 4096) and (1, 32768).
 FLASH_CASES = (
     (4, 128, 32, 32, 64, "bf16", 4096, 0.0),
     (2, 4096, 32, 32, 64, "f32", 1024, 0.0),
@@ -1294,6 +1326,11 @@ FLASH_CASES = (
     (2, 8, 8, 4, 256, "bf16", 4096, 5.0),
     (1, 1000, 8, 4, 256, "bf16", 300, 5.0),
     (1, 2048, 8, 1, 256, "bf16", 0, 0.0),
+    (8, 4096, 16, 8, 64, "bf16", 0, 0.0),
+    (1, 32768, 16, 8, 64, "bf16", 0, 0.0),
+    # (u)'s cohort shape: granite-moe's attention on the 4 users' 128-token
+    # streams
+    (4, 128, 16, 8, 64, "bf16", 0, 0.0),
 )
 FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # past this length the plain version's logits do not fit: the case is
@@ -1710,6 +1747,25 @@ def stacked_applies(K):
         yield seen
     finally:
         api.apply_buffered_rows = real
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Collects, into the list it yields, each MoE layer's count of the
+    (token, slot) pairs capacity drops (``moe.dropped_pairs`` of the
+    layer's input) while the block runs; for forwards outside ``vmap``."""
+    from repro_torch.models import moe
+    real = moe.moe_forward
+    seen = []
+
+    def counted(cfg, p, x):
+        seen.append(int(moe.dropped_pairs(cfg, p, x)))
+        return real(cfg, p, x)
+    moe.moe_forward = counted
+    try:
+        yield seen
+    finally:
+        moe.moe_forward = real
 
 
 def main_path(torch, setup):
@@ -2134,7 +2190,8 @@ def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
 # the published widths: params and leaves of the reference's init
 LM_PARAMS = {"mamba2-130m": (167_598_528, 12),
              "zamba2-1.2b": (1_183_058_816, 21),
-             "gemma2-2b": (3_204_165_888, 14)}
+             "gemma2-2b": (3_204_165_888, 14),
+             "granite-moe-1b-a400m": (1_384_963_072, 13)}
 # the serve driver's mode C: lambda 30, alpha 0.01, K 5, eta_in 0.01
 LM_USERS, LM_TOKENS, LM_INNER_STEPS, LM_PROMPT = 4, 16, 5, 8
 # zamba2's personal subset: the shared attention+MLP block and the
@@ -2158,6 +2215,21 @@ PREFILL_SHAPES = ((8, 4096), (1, 32768))
 # GEMMA2_PARITY_PLEN tokens (the CPU's share of (t) grows with the 256,000
 # vocab times the stream)
 GEMMA2_PARITY_SHAPE, GEMMA2_PARITY_PLEN = (1, 4608), 32
+# (u): granite's personal subset, the unembedding (50,334,720 params a
+# user), 4 users on 128-token streams, as (r)
+GRANITE_SUBSET, GRANITE_USERS, GRANITE_PLEN = "embed/unembed", 4, 128
+# (w): granite at 2 layers at (2, 256), where capacity binds (C = 80 of a
+# mean load of 64 per expert); deepseek-v3-671b cut to 1 dense-prefix layer
+# and 1 MoE layer of 16 experts, with its shared expert and the MTP block,
+# every width published (45 leaves, 3,706,691,584 params; the whole model's
+# 671 B params need the multi-device paths), at (1, 128), and 8 decode steps
+GRANITE_PARITY_SHAPE = (2, 256)
+DEEPSEEK_CUT = dict(n_layers=2, n_experts=16, first_k_dense=1)
+DEEPSEEK_PARAMS = (3_706_691_584, 45)
+DEEPSEEK_SHAPE, DEEPSEEK_DECODE = (1, 128), 8
+# decode against prefill: the reference's own bound
+# (tests/test_models_smoke.py:123)
+DECODE_TOL = dict(atol=5e-4, rtol=5e-4)
 # phases (h) and (k): card against CPU, f32, TF32 off.  The card runs the
 # scan through ssd_fwd and the CPU through ssd_chunked (einsums), which sum
 # the chunk products in other orders (ssd_fwd vs ssd_ref differ by up to
@@ -2180,13 +2252,19 @@ def lm_leaf_shapes(arch):
     hkv = cfg.n_kv_heads * cfg.resolved_head_dim
     if cfg.ssm is None:
         # models/lm.py: embed, final_norm, then the stacked layers' attn
-        # (biases first), norms and MLP, then the visual projection
+        # (biases first), norms and MLP (or a MoE without shared experts:
+        # router, then the stacked experts), then the visual projection
         shapes = [(V, d), (d, V), (d,)]
         if cfg.qkv_bias:
             shapes += [(L, hkv), (L, hq), (L, hkv)]
         shapes += [(L, d, hkv), (L, hq, d), (L, d, hq), (L, d, hkv)]
         shapes += [(L, d)] * (4 if cfg.post_block_norm else 2)
-        shapes += [(L, cfg.d_ff, d), (L, d, cfg.d_ff), (L, d, cfg.d_ff)]
+        if cfg.moe is not None:
+            E, f = cfg.moe.n_experts, cfg.moe.expert_d_ff
+            shapes += [(L, d, E), (L, E, f, d), (L, E, d, f), (L, E, d, f)]
+        else:
+            shapes += [(L, cfg.d_ff, d), (L, d, cfg.d_ff),
+                       (L, d, cfg.d_ff)]
         return shapes + ([(d, d)] if cfg.n_visual_tokens else [])
     from repro_torch.models import mamba2 as m2
     s = cfg.ssm
@@ -2205,11 +2283,11 @@ def lm_leaf_shapes(arch):
 def lm_forward_launches(cfg):
     """(ssd_fwd, flash_attention_fwd) launches of one forward evaluation of
     an LM: one ssd_fwd per Mamba2 layer and one flash_attention_fwd per
-    shared-block invocation (ssm_lm), or one flash_attention_fwd per layer
-    (models/lm.py)."""
+    shared-block invocation (ssm_lm), or one flash_attention_fwd per GQA
+    layer (models/lm.py; MLA runs plain)."""
     from repro_torch.models import ssm_lm
     if cfg.ssm is None:
-        return 0, cfg.n_layers
+        return 0, 0 if cfg.mla is not None else cfg.n_layers
     return cfg.n_layers, ssm_lm.n_shared_slots(cfg)
 
 
@@ -2248,7 +2326,7 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
     from repro_torch.core.subset import merge_subset
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.launch import serve
-    from repro_torch.models import api
+    from repro_torch.models import api, lm
     from repro_torch.tree import tree_leaves, tree_map
     n_params_want, n_leaves_want = LM_PARAMS[arch]
     out, keep = {}, None
@@ -2307,6 +2385,13 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
             head_loss = vmap(loss, in_dims=(p_axes, 0))(heads, batch).cpu()
             glob_loss = vmap(loss, in_dims=(None, 0))(run.params,
                                                      batch).cpu()
+            drops = None
+            if cfg.moe is not None:
+                # the (token, slot) pairs capacity drops in a forward of the
+                # cohort's batch at the global params, one group a user, as
+                # the vmapped cohort forward groups them
+                with moe_drops() as drops:
+                    lm.lm_hidden(cfg, run.params, batch["tokens"][:, 0])
         del heads
         st = srv.stats
         # K prox steps and nu's gradient per mode-C cohort call
@@ -2350,6 +2435,12 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
             "expected_launches": expect, "loss_evaluations": evals,
             "head_loss": head_loss.tolist(),
             "global_loss": glob_loss.tolist()}
+        if drops is not None:
+            row["moe_dropped_pairs_per_forward"] = sum(drops)
+            row["moe_dropped_pairs_by_layer"] = drops
+            row["moe_pairs_per_forward"] = \
+                users * batch["tokens"].shape[-1] * cfg.moe.top_k \
+                * cfg.n_layers
         out[codec] = row
         print(f"{label} {arch} serving {codec}: {json.dumps(row)}",
               flush=True)
@@ -2405,11 +2496,12 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
                           flush=True)
                 check(oom is None, f"{label} int8: the second flush ran "
                                    f"out of device memory: {oom}")
-            row["profile_flush"] = profile_shares(torch, again)
+            moe = cfg.moe is not None
+            row["profile_flush"] = profile_shares(torch, again, moe=moe)
             row["profile_decode_4_tokens"] = profile_shares(
                 torch, lambda: serve._decode_personalized(
                     cfg, run.heads, run.prompt, LM_PROMPT + 4, LM_PROMPT,
-                    params=run.params, spec=spec))
+                    params=run.params, spec=spec), moe=moe)
             print(f"{label} profiles, int8 server: flush "
                   f"{json.dumps(row['profile_flush'])}; decode "
                   f"{json.dumps(row['profile_decode_4_tokens'])}",
@@ -2502,10 +2594,21 @@ def memory_split(trace, before, start=0, stop=None, top=14):
             "split_gb": [(k, round(b / 1e9, 4)) for k, b in split]}
 
 
-def profile_shares(torch, fn, compare_readers=False):
+# the MoE layer's routing and dispatch kernels (models/moe.py), by name: the
+# router's top-k sort and the pairs' sort by expert, the run starts' scan,
+# the scatters of the counts, ranks and slot map, the index_selects (a
+# gather kernel) of dispatch and combine (the embedding's row gather falls
+# here too)
+MOE_DISPATCH_NAMES = ("sort", "scan", "scatter", "gather", "indexselect",
+                      "index_select")
+
+
+def profile_shares(torch, fn, compare_readers=False, moe=False):
     """Wall, device busy time, and device time in ssd_fwd, in
     flash_attention_fwd, in GEMMs and in everything else, of one ``fn()``
-    under ``torch.profiler``.  With ``compare_readers`` the same profile is
+    under ``torch.profiler``; with ``moe``, the MoE's routing and dispatch
+    kernels (MOE_DISPATCH_NAMES) are a class of their own, each listed by
+    name.  With ``compare_readers`` the same profile is
     also read through the profiler's function events (``prof.events()``,
     the slow reader ``device_events`` replaced), whose device-event count
     and busy time must agree with the raw events'."""
@@ -2519,7 +2622,9 @@ def profile_shares(torch, fn, compare_readers=False):
         wall = time.perf_counter() - t0
     sums = {"ssd_fwd": 0.0, "flash_attention_fwd": 0.0, "gemm": 0.0,
             "other": 0.0}
-    by_name = {}
+    if moe:
+        sums["moe_dispatch"] = 0.0
+    by_name, dispatch = {}, {}
     kernels = device_events(torch, prof)
     n = len(kernels)
     for full, ms in kernels:
@@ -2529,6 +2634,10 @@ def profile_shares(torch, fn, compare_readers=False):
             "flash_attention_fwd" if "flash_attention_fwd" in name else \
             "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
                                               "nvjet")) else "other"
+        if moe and key == "other" and any(w in name
+                                          for w in MOE_DISPATCH_NAMES):
+            key = "moe_dispatch"
+            dispatch[full[:80]] = dispatch.get(full[:80], 0.0) + ms
         sums[key] += ms
         by_name[full[:60]] = by_name.get(full[:60], 0.0) + ms
     busy = sum(sums.values())
@@ -2554,6 +2663,9 @@ def profile_shares(torch, fn, compare_readers=False):
             **{f"{k}_share": v / busy if busy else 0.0
                for k, v in sums.items()},
             "top_ms": [(k, round(v, 3)) for k, v in top],
+            **({"moe_dispatch_by_name_ms": sorted(
+                ((k, round(v, 3)) for k, v in dispatch.items()),
+                key=lambda kv: -kv[1])} if moe else {}),
             **({"readers": readers} if readers else {})}
 
 
@@ -2598,7 +2710,8 @@ def prefill_phase(torch, cfg, params, label, calls=3,
                   f"{calls} calls, expected {calls} x {per_call}")
             prof = profile_shares(
                 torch, lambda: step(params, batch),
-                compare_readers=compare_readers and not out)
+                compare_readers=compare_readers and not out,
+                moe=cfg.moe is not None)
         row = {"wall_ms": [w * 1e3 for w in walls],
                "wall_ms_median": statistics.median(walls) * 1e3,
                "tokens_per_s": B * S / statistics.median(walls),
@@ -2615,6 +2728,13 @@ def prefill_phase(torch, cfg, params, label, calls=3,
     return out
 
 
+def _close(torch, got, want, tol):
+    """Within ``tol``, and a zero and a sign-flipped ``want`` are not."""
+    return (torch.allclose(got, want, **tol)
+            and not torch.allclose(torch.zeros_like(want), want, **tol)
+            and not torch.allclose(-want, want, **tol))
+
+
 def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
                   plen=128, flush=True):
     """(h) / (k) / (t): ``arch`` at full width but ``n_layers`` layers, f32,
@@ -2627,7 +2747,7 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
     from repro_torch.core import PersAFLConfig
     from repro_torch.data import synthetic_token_batch
     from repro_torch.launch import serve
-    from repro_torch.models import api
+    from repro_torch.models import api, lm
     from repro_torch.serving import PersonalizationServer
     from repro_torch.tree import tree_leaves, tree_map
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
@@ -2647,6 +2767,14 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
     with torch.no_grad():
         lg = api.prefill_logits(cfg, p_gpu, {"tokens": tokens.cuda()}).cpu()
         launches = _lm_launches()
+        drops = None
+        if cfg.moe is not None:
+            # capacity binds at this shape: both sides drop the same pairs
+            drops = {}
+            with moe_drops() as drops["cuda"]:
+                lm.lm_hidden(cfg, p_gpu, tokens.cuda())
+            with moe_drops() as drops["cpu"]:
+                lm.lm_hidden(cfg, p_cpu, tokens)
         t0 = time.perf_counter()
         lc = api.prefill_logits(cfg, p_cpu, {"tokens": tokens})
         cpu_prefill_s = time.perf_counter() - t0
@@ -2658,16 +2786,20 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
                                        {"tokens": tokens.cuda()}).cpu()
             glob_diff = float((lglob - lc).abs().max())
     diff = float((lg - lc).abs().max())
-    check(torch.allclose(lg, lc, **LM_PREFILL_TOL)
-          and not torch.allclose(torch.zeros_like(lc), lc, **LM_PREFILL_TOL)
-          and not torch.allclose(-lc, lc, **LM_PREFILL_TOL),
+    check(_close(torch, lg, lc, LM_PREFILL_TOL),
           f"{label} prefill logits card vs CPU differ by {diff} (tol "
           f"{LM_PREFILL_TOL})")
     print(f"{label} card vs CPU, {arch} at {n_layers} layers f32, prefill "
           f"{tuple(shape)}: logits max |diff| {diff:.3e} (tol "
           f"{LM_PREFILL_TOL}; card launches ssd_fwd/flash_attention_fwd "
           f"{launches}); all-global copy max |diff| {glob_diff}; host init "
-          f"{init_s:.2f} s, CPU prefill {cpu_prefill_s:.2f} s", flush=True)
+          f"{init_s:.2f} s, CPU prefill {cpu_prefill_s:.2f} s"
+          + (f"; (token, slot) pairs dropped by layer, card {drops['cuda']} "
+             f"CPU {drops['cpu']}" if drops else ""), flush=True)
+    if drops is not None:
+        check(drops["cuda"] == drops["cpu"] and sum(drops["cpu"]) > 0,
+              f"{label}: dropped pairs card {drops['cuda']} CPU "
+              f"{drops['cpu']}: capacity must bind, the same on both sides")
     check(launches == lm_forward_launches(cfg),
           f"{label}: the card's prefill launched ssd_fwd and "
           f"flash_attention_fwd {launches} times")
@@ -2677,7 +2809,7 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
               f"tolerance of the windowed ones: the check cannot see the "
               f"window")
     out = {"prefill_diff": diff, "launches": launches,
-           "all_global_diff": glob_diff}
+           "all_global_diff": glob_diff, "dropped_pairs": drops}
     if not flush:
         return out
     pcfg = PersAFLConfig(option="C", lam=30.0, alpha=0.01, inner_steps=5,
@@ -2738,6 +2870,129 @@ def gemma2_phases(torch):
     lm_cpu_parity(torch, "codeqwen1.5-7b", 2, "(t)", flush=False)
     torch.cuda.empty_cache()
     return gl, gprefill
+
+
+def deepseek_cpu_parity(torch, label):
+    """(w): deepseek-v3-671b cut to DEEPSEEK_CUT, every width published,
+    f32, on the card and on the CPU at DEEPSEEK_SHAPE: the loss (its aux
+    and 0.1 x MTP terms included; the MTP term must move it past the
+    tolerance), ``prefill_logits`` and the dropped pairs; then
+    DEEPSEEK_DECODE absorbed-MLA decode steps on the card against the
+    card's prefill logits of those tokens.  MLA and the MoE run plain: no
+    kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.models import api, lm
+    from repro_torch.tree import tree_leaves, tree_map
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(
+        full, n_layers=DEEPSEEK_CUT["n_layers"], dtype="float32",
+        moe=dataclasses.replace(full.moe,
+                                n_experts=DEEPSEEK_CUT["n_experts"],
+                                first_k_dense=DEEPSEEK_CUT["first_k_dense"]))
+    t0 = time.perf_counter()
+    # the init's own laws, each tensor made on the card (the default device
+    # inside the block) from a CUDA generator: the host's one-threaded
+    # generator takes tens of seconds for 3.7e9 params
+    with torch.device("cuda"):
+        p_gpu = api.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    p_cpu = tree_map(lambda x: x.cpu(), p_gpu)
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(p_cpu)
+    got = (sum(x.numel() for x in leaves), len(leaves))
+    check(got == DEEPSEEK_PARAMS, f"{label} deepseek cut: {got[0]} params "
+                                  f"in {got[1]} leaves")
+    check(all(x.is_cuda for x in tree_leaves(p_gpu)),
+          f"{label} deepseek cut: a leaf was made off the card")
+    B, S = DEEPSEEK_SHAPE
+    cpu = {k: torch.from_numpy(v) for k, v in synthetic_token_batch(
+        5, B, S, cfg.vocab).items()}
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    no_mtp = dataclasses.replace(cfg, use_mtp=False)
+    res = {}
+    _reset_lm_launches()
+    with torch.no_grad():
+        for dev, params, batch in (("cuda", p_gpu, gpu), ("cpu", p_cpu, cpu)):
+            t0 = time.perf_counter()
+            with moe_drops() as drops:
+                _, aux = lm.lm_hidden(cfg, params, batch["tokens"])
+            res[dev] = {"loss": api.loss_fn(cfg, params, batch).cpu(),
+                        "loss_no_mtp": api.loss_fn(no_mtp, params,
+                                                   batch).cpu(),
+                        "prefill": api.prefill_logits(cfg, params,
+                                                      batch).cpu(),
+                        "aux": aux.cpu(), "drops": drops,
+                        "s": time.perf_counter() - t0}
+            if dev == "cuda":
+                # absorbed-MLA decode against the card's prefill, at
+                # capacity_factor 8.0 so that nothing drops, as the
+                # reference's own check sets it
+                wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=8.0))
+                toks = batch["tokens"][:, :DEEPSEEK_DECODE]
+                want = lm.lm_logits(wide, params, toks)[0]
+                cache = api.init_cache(wide, params, {"tokens": toks[:, :1]},
+                                       DEEPSEEK_DECODE, torch.float32)
+                steps = []
+                for pos in range(DEEPSEEK_DECODE):
+                    logits, cache = api.decode_step(
+                        wide, params, cache, toks[:, pos:pos + 1], pos)
+                    steps.append(logits[:, 0])
+                dec = torch.stack(steps, dim=1)
+                dec_diff = float((dec - want).abs().max())
+                dec_ok = _close(torch, dec, want, DECODE_TOL)
+                launches = _lm_launches()
+    g, c = res["cuda"], res["cpu"]
+    diffs = {k: float((g[k] - c[k]).abs().max())
+             for k in ("loss", "prefill", "aux")}
+    mtp_move = float((c["loss"] - c["loss_no_mtp"]).abs())
+    print(f"{label} card vs CPU, deepseek-v3-671b cut to "
+          f"{json.dumps(DEEPSEEK_CUT)} ({got[0]} params in {got[1]} "
+          f"leaves, init on the card and copy to the host {init_s:.2f} s), f32, {DEEPSEEK_SHAPE}: loss "
+          f"card {float(g['loss']):.6f} CPU {float(c['loss']):.6f} (aux "
+          f"{float(c['aux']):.6e}, the MTP term moves it by {mtp_move:.4e}), "
+          f"max |diff| {json.dumps(diffs)} (tol {LM_PREFILL_TOL}); dropped "
+          f"pairs card {g['drops']} CPU {c['drops']}; {DEEPSEEK_DECODE} "
+          f"absorbed-MLA decode steps vs the card's prefill max |diff| "
+          f"{dec_diff:.3e} (tol {DECODE_TOL}); launches ssd_fwd/"
+          f"flash_attention_fwd {launches}; walls card {g['s']:.2f} s CPU "
+          f"{c['s']:.2f} s", flush=True)
+    for k in ("loss", "prefill", "aux"):
+        check(_close(torch, g[k], c[k], LM_PREFILL_TOL),
+              f"{label} deepseek {k} card vs CPU differs by {diffs[k]}")
+    check(not torch.allclose(c["loss_no_mtp"], c["loss"], **LM_PREFILL_TOL),
+          f"{label} deepseek: the loss without its MTP term is within the "
+          f"tolerance of the loss")
+    check(g["drops"] == c["drops"], f"{label} deepseek: dropped pairs card "
+                                    f"{g['drops']} CPU {c['drops']}")
+    check(dec_ok, f"{label} deepseek: decode differs from prefill by "
+                  f"{dec_diff}")
+    check(launches == (0, 0), f"{label} deepseek: kernels launched "
+                              f"{launches}; MLA and the MoE run plain")
+    return {"diffs": diffs, "decode_diff": dec_diff, "init_s": init_s}
+
+
+def moe_phases(torch):
+    """(u) granite-moe-1b-a400m served at full width through
+    ``launch.serve.main`` (GRANITE_USERS users on GRANITE_PLEN-token
+    streams, ``--personal-subset embed/unembed``, fp32 then int8, one
+    window apply each), (v) its prefill at PREFILL_SHAPES, 2 timed calls
+    each, (w) card against CPU: granite at 2 layers at
+    GRANITE_PARITY_SHAPE with one flush, and deepseek-v3-671b cut to
+    DEEPSEEK_CUT.  Returns (u)'s and (v)'s rows."""
+    ul, (u_cfg, u_params) = lm_serving_phase(
+        torch, "granite-moe-1b-a400m", "(u)", subset=GRANITE_SUBSET,
+        users=GRANITE_USERS, plen=GRANITE_PLEN)
+    uprefill = prefill_phase(torch, u_cfg, u_params, "(v)", calls=2)
+    del u_params
+    torch.cuda.empty_cache()
+    lm_cpu_parity(torch, "granite-moe-1b-a400m", 2, "(w)",
+                  subset=GRANITE_SUBSET, shape=GRANITE_PARITY_SHAPE)
+    torch.cuda.empty_cache()
+    deepseek_cpu_parity(torch, "(w)")
+    torch.cuda.empty_cache()
+    return ul, uprefill
 
 
 # ---------------------------------------------------------------------------
@@ -3634,17 +3889,21 @@ def run_phases(torch):
     mshapes = lm_leaf_shapes("mamba2-130m")
     zshapes = lm_leaf_shapes("zamba2-1.2b")
     gshapes = lm_leaf_shapes("gemma2-2b")
-    check((sum(int(np.prod(sh)) for sh in gshapes), len(gshapes))
-          == LM_PARAMS["gemma2-2b"],
-          f"gemma2-2b: {len(gshapes)} leaves of the config's shapes")
+    ushapes = lm_leaf_shapes("granite-moe-1b-a400m")
+    for arch, shapes in (("gemma2-2b", gshapes),
+                         ("granite-moe-1b-a400m", ushapes)):
+        check((sum(int(np.prod(sh)) for sh in shapes), len(shapes))
+              == LM_PARAMS[arch],
+              f"{arch}: {len(shapes)} leaves of the config's shapes")
     # zamba2's personal subset: embed/unembed and the 9 shared leaves;
-    # gemma2's: embed/unembed
+    # gemma2's and granite's: embed/unembed
     with timed("kernels"):
         results = kernel_phase(torch, cnn_shapes, (
             ("mamba2-130m 12 leaves", mshapes),
             ("zamba2-1.2b shared,embed/unembed 10 leaves",
              [zshapes[1]] + zshapes[12:]),
-            ("gemma2-2b embed/unembed 1 leaf", [gshapes[1]])))
+            ("gemma2-2b embed/unembed 1 leaf", [gshapes[1]]),
+            ("granite-moe-1b-a400m embed/unembed 1 leaf", [ushapes[1]])))
     lm_trees = []
     for arch, shapes in (("mamba2-130m", mshapes), ("zamba2-1.2b", zshapes)):
         n_params = sum(int(np.prod(sh)) for sh in shapes)
@@ -3704,6 +3963,8 @@ def run_phases(torch):
                           "ssd_fwd": {"(q2)": listen_launches["ssd_fwd"]}}
     with timed("(r)-(t)"):
         gl, gprefill = gemma2_phases(torch)
+    with timed("(u)-(w)"):
+        ul, uprefill = moe_phases(torch)
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -3761,6 +4022,12 @@ def run_phases(torch):
             entry["launches_gemma2_prefill_per_call"] = {
                 k: v["flash_attention_fwd_launches_per_call"]
                 for k, v in gprefill.items()}
+            # granite-moe-1b-a400m: (u)'s serving runs and (v)'s prefill
+            entry["launches_granite"] = {
+                k: v["flash_attention_fwd_launches"] for k, v in ul.items()}
+            entry["launches_granite_prefill_per_call"] = {
+                k: v["flash_attention_fwd_launches_per_call"]
+                for k, v in uprefill.items()}
         elif name not in LOCAL_STEPS:
             entry["launches_fig2_baselines"] = base_launches.get(name, 0)
             entry["launches_scenario"] = {
@@ -3770,7 +4037,8 @@ def run_phases(torch):
             entry["launches_lm_window_apply"] = {
                 label: sum(v["window_apply_launches"] for v in runs.values()
                            if v["window_apply_kernel"] == name)
-                for label, runs in (("(f)", lm), ("(i)", zl), ("(r)", gl))}
+                for label, runs in (("(f)", lm), ("(i)", zl), ("(r)", gl),
+                                    ("(u)", ul))}
         kernels.append(entry)
     kernels[0]["immediate_apply_ms"] = imm_ms
     return card, kernels

@@ -2,12 +2,13 @@
 ``src/repro/configs/__init__.py``.
 
 The registry holds the architectures the port runs: ``mamba2-130m``, the
-hybrid ``zamba2-1.2b``, and the dense and vlm families (``gemma2-2b``,
-``codeqwen1.5-7b``, ``minitron-8b``, ``qwen1.5-110b``, ``internvl2-76b``);
-the paper's CNNs live in :mod:`repro_torch.configs.paper_models`.  The
-reference's moe and encdec architectures raise ``NotImplementedError``
-naming the ROADMAP item that brings their family, and an id neither package
-knows raises ``KeyError``.
+hybrid ``zamba2-1.2b``, the dense and vlm families (``gemma2-2b``,
+``codeqwen1.5-7b``, ``minitron-8b``, ``qwen1.5-110b``, ``internvl2-76b``)
+and the moe family (``granite-moe-1b-a400m``, ``deepseek-v3-671b``); the
+paper's CNNs live in :mod:`repro_torch.configs.paper_models`.  The
+reference's encdec architecture raises ``NotImplementedError`` naming the
+ROADMAP item that brings its family, and an id neither package knows raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ from repro_torch.configs.base import (ArchConfig, InputShape,  # noqa: F401
                                       INPUT_SHAPES, get_shape,
                                       reduce_for_smoke)
 from repro_torch.configs.codeqwen1p5_7b import CONFIG as _codeqwen
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+from repro_torch.configs.granite_moe_1b import CONFIG as _granite
 from repro_torch.configs.internvl2_76b import CONFIG as _internvl
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.minitron_8b import CONFIG as _minitron
@@ -26,14 +29,10 @@ from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
 _REGISTRY: Dict[str, ArchConfig] = {
     c.arch_id: c for c in (_mamba2, _zamba2, _gemma2, _codeqwen, _minitron,
-                           _qwen110, _internvl)}
+                           _qwen110, _internvl, _granite, _deepseek)}
 
 # the reference's other architectures, by the family slice that brings them
 _NOT_PORTED: Dict[str, str] = {
-    "deepseek-v3-671b": "ROADMAP.md Queue 1, LLM side: the moe slice "
-                        "(models/moe.py, MLA attention)",
-    "granite-moe-1b-a400m": "ROADMAP.md Queue 1, LLM side: the moe slice "
-                            "(models/moe.py)",
     "whisper-large-v3": "ROADMAP.md Queue 1, LLM side: the encdec slice "
                         "(models/encdec.py)",
 }

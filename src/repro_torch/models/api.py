@@ -8,10 +8,11 @@ by PersA-FL core, the launch layer and the tests.
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
 
 Ported: the pure-SSM (mamba2-130m) and hybrid (zamba2-1.2b) families
-through :mod:`repro_torch.models.ssm_lm`, the dense and vlm families
-(gemma2-2b, codeqwen1.5-7b, minitron-8b, qwen1.5-110b, internvl2-76b)
-through :mod:`repro_torch.models.lm`.  The moe and encdec (audio) families
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+through :mod:`repro_torch.models.ssm_lm`, the dense, vlm and moe families
+(gemma2-2b, codeqwen1.5-7b, minitron-8b, qwen1.5-110b, internvl2-76b,
+granite-moe-1b-a400m, deepseek-v3-671b) through :mod:`repro_torch.models.lm`.
+The encdec (audio) family raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ from repro_torch.models import lm, ssm_lm
 from repro_torch.models.layers import unembed
 
 _ITEMS = {
-    "moe": "the moe slice (models/moe.py)",
     "audio": "the encdec slice (models/encdec.py)",
 }
 
@@ -33,7 +33,7 @@ def _is_ssm(cfg: ArchConfig) -> bool:
     """True for the families of ``ssm_lm``, False for those of ``lm``;
     raises for a family not ported yet."""
     if not cfg.is_encdec and cfg.family in ("ssm", "hybrid", "dense",
-                                             "vlm"):
+                                             "vlm", "moe"):
         return cfg.family in ("ssm", "hybrid")
     item = _ITEMS.get("audio" if cfg.is_encdec else cfg.family,
                       f"its family slice ({cfg.family})")

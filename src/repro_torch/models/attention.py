@@ -1,7 +1,8 @@
 """Attention, as in ``src/repro/models/attention.py``: GQA, sliding windows,
-logit softcap and QKV bias.
+logit softcap and QKV bias, and DeepSeek-V3's Multi-head Latent Attention
+(MLA).
 
-Two execution paths:
+Three execution paths:
 
   * full-sequence causal self-attention (train / prefill) goes through
     :class:`FlashAttention`, whose forward is
@@ -10,7 +11,10 @@ Two execution paths:
     ``attention_ref`` for CPU tensors;
   * any other mask (non-causal, cross attention, a per-layer
     ``local_flag``) and single-token decode against a KV cache run the
-    plain :func:`sdpa`, as the reference computes them outside any kernel.
+    plain :func:`sdpa`, as the reference computes them outside any kernel;
+  * MLA runs in plain PyTorch, as in the reference: prefill materializes
+    per-head k and v (its q.k head is not its v head, and the kernel takes
+    equal head dims), decode attends in the latent space (absorbed form).
 
 The one intended difference from the reference: its ``attn_forward`` calls
 the plain ``sdpa`` everywhere (the Pallas kernel is validated on its own),
@@ -18,8 +22,8 @@ while the port runs the kernel when the activations lie on the card.  On
 the CPU both packages compute the same plain attention, so the parity tests
 compare like with like.
 
-Softmax is always computed in f32.  ``cross_attn_decode`` and MLA raise
-``NotImplementedError`` naming the slices that bring them.
+Softmax is always computed in f32.  ``cross_attn_decode`` raises
+``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -246,21 +250,98 @@ def attn_decode(cfg: ArchConfig, p, x, k_cache, v_cache, pos, *,
 
 _ENCDEC = ("cross-attention decode comes with the encdec slice "
            "(models/encdec.py), ROADMAP.md Queue 1, LLM side")
-_MLA = ("Multi-head Latent Attention comes with the moe slice "
-        "(deepseek-v3's MLA), ROADMAP.md Queue 1, LLM side")
 
 
 def cross_attn_decode(cfg: ArchConfig, p, x, enc_k, enc_v):
     raise NotImplementedError(_ENCDEC)
 
 
-def init_mla(generator, cfg: ArchConfig):
-    raise NotImplementedError(_MLA)
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 Multi-head Latent Attention (MLA)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: ArchConfig):
+    """Params on the CPU, drawn from ``generator``: the query's and the
+    key/value's low-rank down and up projections, the shared rotary key and
+    the output."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"w_dq": dense_init(generator, (d, m.q_lora_rank)),
+            "w_uq": dense_init(generator, (m.q_lora_rank, H * qk_head)),
+            "w_dkv": dense_init(generator, (d, m.kv_lora_rank)),
+            "w_krope": dense_init(generator, (d, m.qk_rope_head_dim)),
+            "w_uk": dense_init(generator,
+                               (m.kv_lora_rank, H * m.qk_nope_head_dim)),
+            "w_uv": dense_init(generator, (m.kv_lora_rank, H * m.v_head_dim)),
+            "wo": dense_init(generator, (H * m.v_head_dim, d))}
+
+
+def _mla_q(cfg: ArchConfig, p, x, positions):
+    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope) rotated."""
+    m, H = cfg.mla, cfg.n_heads
+    dt = x.dtype
+    B, S = x.shape[:2]
+    q = (x @ p["w_dq"].to(dt)) @ p["w_uq"].to(dt)
+    q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_scale(m) -> float:
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
 
 
 def mla_forward(cfg: ArchConfig, p, x, *, positions):
-    raise NotImplementedError(_MLA)
+    """Full-sequence MLA (train / prefill), per-head k and v materialized,
+    in plain PyTorch as the reference computes it: its q.k head (nope +
+    rope, 192 at full width) is not its v head (128), and the attention
+    kernel takes equal head dims.  Returns (out (B,S,d), (c_kv, k_rope))."""
+    m, H = cfg.mla, cfg.n_heads
+    dt = x.dtype
+    B, S = x.shape[:2]
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv = x @ p["w_dkv"].to(dt)                             # (B,S,r_kv)
+    # one rotary key head, shared by every query head
+    k_rope = apply_rope((x @ p["w_krope"].to(dt))[:, :, None, :],
+                        positions, cfg.rope_theta)           # (B,S,1,rope)
+    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, m.v_head_dim)
+    logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btod->bhst", q_rope, k_rope))
+    logits = logits.float() * _mla_scale(m)
+    mask = causal_mask(S, S, 0, device=x.device)[:, :, 0]   # (1,1,S,T)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, -1)
+    return out @ p["wo"].to(dt), (c_kv, k_rope[:, :, 0, :])
 
 
 def mla_decode(cfg: ArchConfig, p, x, ckv_cache, krope_cache, pos):
-    raise NotImplementedError(_MLA)
+    """Absorbed-matrix MLA decode, attending in the latent space:
+    ``W_uk`` goes into the query and ``W_uv`` into the output, so the cache
+    stays (B,T,kv_lora) + (B,T,rope).  x (B,1,d); pos an int.  Returns
+    (out (B,1,d), new ckv cache, new krope cache)."""
+    m, H = cfg.mla, cfg.n_heads
+    dt = x.dtype
+    B = x.shape[0]
+    posv = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, posv)                 # (B,1,H,.)
+    c_kv = x @ p["w_dkv"].to(dt)                             # (B,1,r)
+    k_rope = apply_rope((x @ p["w_krope"].to(dt))[:, :, None, :], posv,
+                        cfg.rope_theta)[:, :, 0, :]          # (B,1,rope)
+    ckv_cache = _write_row(ckv_cache, c_kv, pos)
+    krope_cache = _write_row(krope_cache, k_rope, pos)
+    w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)     # (B,1,H,r)
+    ckv = ckv_cache.to(dt)
+    logits = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+              + torch.einsum("bshd,btd->bhst", q_rope, krope_cache.to(dt)))
+    logits = logits.float() * _mla_scale(m)
+    mask = torch.arange(ckv_cache.shape[1], device=x.device) <= pos
+    logits = logits.masked_fill(~mask[None, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    ctx = torch.einsum("bhst,btr->bshr", probs, ckv)         # (B,1,H,r)
+    w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhd->bshd", ctx, w_uv).reshape(B, 1, -1)
+    return out @ p["wo"].to(dt), ckv_cache, krope_cache

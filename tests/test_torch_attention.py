@@ -11,6 +11,8 @@ the output without the window does.  On the CPU ``attn_forward`` runs the
 plain ``attention_ref`` inside its ``FlashAttention`` Function, the JAX
 package the plain ``sdpa``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,8 +76,26 @@ def test_init_shapes_match_reference(smoke):
     want = {"attn": smoke["np_attn"], "mlp": smoke["np_mlp"]}
     assert tree_map(lambda t: (tuple(t.shape), str(t.dtype)), own) == \
         jax.tree.map(lambda a: (a.shape, "torch." + str(a.dtype)), want)
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        attn.init_mla(g, cfg)
+    # MLA at these widths: the port's init has the reference's tree, and
+    # mla_forward from the reference's init gives the reference's output
+    mcfg = dataclasses.replace(cfg, mla=base.MLAConfig(
+        q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32))
+    jmcfg = dataclasses.replace(smoke["jcfg"], mla=jbase.MLAConfig(
+        **dataclasses.asdict(mcfg.mla)))
+    np_mla = jax.tree.map(np.asarray, jax.jit(lambda k: jattn.init_mla(
+        k, jmcfg))(jax.random.PRNGKey(1)))
+    assert tree_map(lambda t: (tuple(t.shape), str(t.dtype)),
+                    attn.init_mla(g, mcfg)) == \
+        jax.tree.map(lambda a: (a.shape, "torch." + str(a.dtype)), np_mla)
+    x = np.ascontiguousarray(smoke["x"][..., :cfg.d_model])
+    pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
+    want, _ = jax.jit(lambda p, xx, ps: jattn.mla_forward(
+        jmcfg, p, xx, positions=ps))(np_mla, x, pos)
+    got, _ = attn.mla_forward(mcfg, params_from_jax(np_mla, device="cpu"),
+                              torch.from_numpy(x),
+                              positions=torch.from_numpy(pos))
+    _holds(got, want)
     with pytest.raises(NotImplementedError, match="encdec slice"):
         attn.cross_attn_decode(cfg, own["attn"], None, None, None)
 

@@ -347,19 +347,35 @@ def test_gemma2_feature_moves_the_logits(gemma2, feature, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what the dense slice does not bring
+# the moe family's branches on gemma2's smoke config
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change", ["moe", "mla", "use_mtp"])
 def test_moe_branches_raise_naming_the_moe_slice(change):
+    """The branches the dense slice refused -- a MoE FFN, MLA, the MTP loss
+    -- each added to gemma2's smoke config (post-block norms, softcaps,
+    alternation kept): the port's init has the reference's tree, and from
+    the reference's init its logits and its loss (with the aux loss, or
+    0.1 x the MTP loss) equal the reference's."""
     cfg = base.reduce_for_smoke(configs.get_config("gemma2-2b"))
-    value = {"moe": base.MoEConfig(n_experts=4, top_k=2, expert_d_ff=64),
-             "mla": base.MLAConfig(),
-             "use_mtp": True}[change]
-    bad = dataclasses.replace(cfg, **{change: value})
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        lm.init_lm(bad, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        lm.lm_hidden(bad, {}, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        lm.init_lm_cache(bad, 1, 4, torch.float32, "cpu")
+    jcfg = jbase.reduce_for_smoke(jconfigs.get_config("gemma2-2b"))
+    value, jvalue = {
+        "moe": (base.MoEConfig(n_experts=4, top_k=2, expert_d_ff=64),
+                jbase.MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)),
+        "mla": (base.MLAConfig(), jbase.MLAConfig()),
+        "use_mtp": (True, True)}[change]
+    cfg = dataclasses.replace(cfg, **{change: value})
+    jcfg = dataclasses.replace(jcfg, **{change: jvalue})
+    np_params = jax.tree.map(np.asarray, jax.jit(
+        lambda k: japi.init_params(jcfg, k))(jax.random.PRNGKey(0)))
+    own = lm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert tree_map(lambda x: tuple(x.shape), own) == \
+        jax.tree.map(lambda x: x.shape, np_params)
+    batch = synthetic_token_batch(1, 2, SEQ, cfg.vocab)
+    want_logits, want_loss = jax.jit(lambda p: (
+        jlm.lm_logits(jcfg, p, batch["tokens"])[0],
+        japi.loss_fn(jcfg, p, batch)))(np_params)
+    params = params_from_jax(np_params, device="cpu")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _holds(lm.lm_logits(cfg, params, tbatch["tokens"])[0], want_logits)
+    _holds(api.loss_fn(cfg, params, tbatch), want_loss, atol=0.0, rtol=1e-5)

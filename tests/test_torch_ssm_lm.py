@@ -98,7 +98,8 @@ def _port_config(jcfg):
 
 def test_config_registry():
     assert configs.list_archs() == [
-        "codeqwen1.5-7b", "gemma2-2b", "internvl2-76b", "mamba2-130m",
+        "codeqwen1.5-7b", "deepseek-v3-671b", "gemma2-2b",
+        "granite-moe-1b-a400m", "internvl2-76b", "mamba2-130m",
         "minitron-8b", "qwen1.5-110b", "zamba2-1.2b"]
     for arch in configs.list_archs():
         cfg = configs.get_config(arch)
@@ -106,18 +107,14 @@ def test_config_registry():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.activation_dtype == torch.bfloat16
         assert base.reduce_for_smoke(cfg).activation_dtype == torch.float32
-    # every other reference arch (moe, encdec) names the slice that brings
-    # it
+    # the other reference arch (encdec) names the slice that brings it
     others = [a for a in jconfigs.list_archs()
               if a not in configs.list_archs()]
-    assert others == ["deepseek-v3-671b", "granite-moe-1b-a400m",
-                      "whisper-large-v3"]
-    for arch in others:
-        slice_name = "encdec" if arch.startswith("whisper") else "moe"
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1, LLM side: the "
-                                 f"{slice_name} slice"):
-            configs.get_config(arch)
+    assert others == ["whisper-large-v3"]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, LLM side: the encdec "
+                             "slice"):
+        configs.get_config("whisper-large-v3")
     with pytest.raises(KeyError):
         configs.get_config("mamba2-13om")
     assert [dataclasses.asdict(s) for s in base.INPUT_SHAPES] == \
@@ -275,8 +272,9 @@ def test_decode_steps_match_reference(smoke):
 
 def test_hybrid_and_other_families_raise():
     """The hybrid family is ported (it builds the shared block), and so are
-    the dense and vlm families (``models/lm.py``); the moe and audio
-    families still raise, naming their slices."""
+    the dense, vlm and moe families (``models/lm.py``; a moe config's loss
+    equals the reference's); the audio family still raises, naming its
+    slice."""
     cfg = base.reduce_for_smoke(configs.get_config("mamba2-130m"))
     hybrid = dataclasses.replace(cfg, family="hybrid", attn_every=2,
                                  n_heads=4, n_kv_heads=4, head_dim=32,
@@ -291,11 +289,22 @@ def test_hybrid_and_other_families_raise():
     vlm = dataclasses.replace(dense, family="vlm", n_visual_tokens=4)
     params = api.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
     assert tuple(params["vis_proj"].shape) == (vlm.d_model, vlm.d_model)
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        api.loss_fn(dataclasses.replace(dense, family="moe"), {}, {})
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        api.init_params(dataclasses.replace(dense, family="moe"),
-                        torch.Generator(), "cpu")
+    # the moe family goes to models/lm.py: its loss, with the router's aux
+    # loss, from the reference's init equals the reference's
+    moe = dataclasses.replace(dense, family="moe", moe=base.MoEConfig(
+        n_experts=4, top_k=2, expert_d_ff=64))
+    params = api.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    assert sorted(params["layers"]) == ["attn", "ln1", "ln2", "moe"]
+    kw = dataclasses.asdict(moe)
+    kw["moe"] = jbase.MoEConfig(**kw["moe"])
+    jmoe = jbase.ArchConfig(**kw)
+    np_params = jax.tree.map(np.asarray, jax.jit(
+        lambda k: japi.init_params(jmoe, k))(jax.random.PRNGKey(0)))
+    batch = synthetic_token_batch(2, 2, 24, moe.vocab)
+    want = jax.jit(lambda p: japi.loss_fn(jmoe, p, batch))(np_params)
+    got = api.loss_fn(moe, params_from_jax(np_params, device="cpu"),
+                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    _holds(got, want, atol=0.0, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="encdec slice"):
         api.init_params(dataclasses.replace(cfg, family="audio",
                                             is_encdec=True),

@@ -35,7 +35,15 @@ Phases; any failure exits non-zero and prints no result line:
      S = 1000 with a window of 300; an hd-256 MQA case without a
      softcap; and granite-moe-1b-a400m's prefill shapes, bf16 GQA 16/8 of
      64, causal with no window, at (8, 4096) and (1, 32768), and at
-     (u)'s cohort (4, 128)).  The library time of a case with a softcap is a compiled
+     (u)'s cohort (4, 128)).  Its non-causal, cross-length branch (the
+     encdec family's) within FLASH_XTOL at FLASH_XCASES: whisper's
+     encoder, bf16 20/20 x 64 non-causal at (8, 1500 x 1500) and (x)'s
+     cohort (4, 1500 x 1500); its cross-attention at (8, 448 x 1500) and
+     (4, 128 x 1500); f32 non-causal and cross with T = 200; causal with T
+     != S both ways (offset 0) in f32 and bf16; hd 128 and capped hd 256
+     with T = 200; each must also tell its answer from the other mask's
+     and from the one that scores the last key tile's rows past T (zeros)
+     as 0.  The library time of a case with a softcap is a compiled
      ``flex_attention`` call's, SDPA's otherwise; a softcap case is also
      timed with the cap off (``ms_no_softcap``), and every row carries its
      kernel's registers and spills from nvcc's ``-Xptxas -v`` report (the
@@ -227,10 +235,10 @@ Phases; any failure exits non-zero and prints no result line:
      timed calls after a warm-up, 26 launches per call; the (8, 4096)
      call's profile read by both device-event readers, which must agree.  (t) card against CPU, f32: gemma2 at
      2 layers (layer 0 local, 1 global) at GEMMA2_PARITY_SHAPE, past the
-     window, ``prefill_logits`` within LM_PREFILL_TOL, an all-global copy
-     of the config outside it, and the subset heads of one mode-C flush of
-     2 users within LM_HEAD_TOL; codeqwen1.5-7b at 2 layers with non-zero
-     QKV biases, ``prefill_logits`` only.
+     window, ``prefill_logits`` within LM_PREFILL_TOL and an all-global
+     copy of the config outside it; codeqwen1.5-7b at 2 layers with
+     non-zero QKV biases; both ``prefill_logits`` only, their params drawn
+     on the card and copied to the host.
 
  12. the moe family (``models/moe.py``, MLA) -- (u) granite-moe-1b-a400m's
      ``launch.serve.main`` at full width (1,384,963,072 params in 13
@@ -258,6 +266,25 @@ Phases; any failure exits non-zero and prints no result line:
      and 0.1 x MTP terms and ``prefill_logits`` within LM_PREFILL_TOL, and
      8 absorbed-MLA decode steps on the card against the card's prefill
      logits within DECODE_TOL; no kernel launches in (w)'s deepseek part.
+
+ 13. the encdec family (``models/encdec.py``) -- (x) whisper-large-v3's
+     ``launch.serve.main`` at full width (1,600,990,720 params in 25
+     leaves, drawn on the host), WHISPER_USERS = 4 users on WHISPER_PLEN =
+     128-token streams, each with the 1500 zero frames of the stubbed
+     frontend, ``--personal-subset embed/unembed`` (66,388,480 params a
+     user), fp32 then int8, as (u) otherwise: ``flash_attention_fwd``
+     launched 96 times per forward evaluation (32 non-causal encoder, 32
+     causal and 32 cross decoder layers) and 32 more for the decode
+     cache's encoder, the window apply one ``apply_rows`` /
+     ``apply_rows_q`` launch.  (y) prefill as (s) at WHISPER_PREFILL_SHAPES
+     (8 and 32 rows of its published 448-token decoder context, each with
+     1500 zero frames), 2 timed calls a shape, 96 launches per call,
+     decoder tokens and encoder frames per second.  (z) card against CPU,
+     f32: 2 encoder and 2 decoder layers at published widths and enc_len
+     1500, (2, 64) tokens with unit-normal frames: the loss and
+     ``prefill_logits`` within LM_PREFILL_TOL, 12 launches, and 8 decode
+     steps on the card against its teacher-forced logits within
+     DECODE_TOL.
 
 Each group of phases prints its seconds (``phase <label>: <s> s``).
 
@@ -1396,12 +1423,13 @@ def sdpa_library(torch, q, k, v, window, long):
     return call
 
 
-def flex_library(torch, q, k, v, window, cap):
+def flex_library(torch, q, k, v, window, cap, causal=True):
     """One compiled ``flex_attention`` call computing the kernel's function
     with a softcap, which SDPA does not take: the tanh cap as its
-    ``score_mod``, the causal mask (narrowed to ``window``) as a block mask,
-    GQA by ``enable_gqa``, heads moved to dim 1 as views.  Returns the call
-    (its first call compiles) and the seconds the block mask took."""
+    ``score_mod``, the offset-0 causal mask over (S, T) (narrowed to
+    ``window``) as a block mask, none without ``causal``, GQA by
+    ``enable_gqa``, heads moved to dim 1 as views.  Returns the call (its
+    first call compiles) and the seconds the block mask took."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     global _FLEX
@@ -1412,7 +1440,7 @@ def flex_library(torch, q, k, v, window, cap):
         import torch._dynamo
         torch._dynamo.config.recompile_limit = 64
         _FLEX = torch.compile(flex_attention, dynamic=False)
-    S, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    S, T, Hq, Hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
 
     def score_mod(score, b, h, qi, ki):
         return cap * torch.tanh(score / cap)
@@ -1421,8 +1449,8 @@ def flex_library(torch, q, k, v, window, cap):
         live = ki <= qi
         return live & (qi - ki < window) if window else live
     t0 = time.perf_counter()
-    mask = create_block_mask(mask_mod, None, None, S, S, device=q.device,
-                             _compile=True)
+    mask = create_block_mask(mask_mod, None, None, S, T, device=q.device,
+                             _compile=True) if causal else None
     mask_s = time.perf_counter() - t0
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kw = dict(score_mod=score_mod, block_mask=mask,
@@ -1657,6 +1685,191 @@ def flash_kernel_phase(torch):
                   f"registers, spills {ptx['spill_stores']} / "
                   f"{ptx['spill_loads']} bytes", flush=True)
         del q, k, v, got, pairs, tile_pairs, nowin, nocap, want, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The non-causal, cross-length branch of flash_attention_fwd (the encdec
+# family's), held against attention_ref and attention_tiles_ref within
+# FLASH_XTOL: (B, S, T, Hq, Hkv, hd, dtype, causal, softcap).  whisper's
+# encoder, bidirectional 1500 x 1500 with 20/20 heads of 64 in bf16, at (y)'s
+# prefill batch 8 and (x)'s cohort of 4 users; its decoder's cross-attention,
+# (y)'s 448 tokens against 1500 frames, and (x)'s 128-token streams; f32
+# non-causal and cross at T = 200, which no key tile divides; causal with
+# T != S both ways (offset 0: query row i at position i), f32 and bf16; and
+# the wgmma kernel's hd-128 and capped hd-256 instances, non-causal with T =
+# 200.
+FLASH_XCASES = (
+    (8, 1500, 1500, 20, 20, 64, "bf16", False, 0.0),
+    (4, 1500, 1500, 20, 20, 64, "bf16", False, 0.0),
+    (8, 448, 1500, 20, 20, 64, "bf16", False, 0.0),
+    (4, 128, 1500, 20, 20, 64, "bf16", False, 0.0),
+    (2, 200, 200, 8, 8, 64, "f32", False, 0.0),
+    (2, 96, 200, 8, 8, 64, "f32", False, 0.0),
+    (2, 256, 200, 8, 8, 64, "bf16", True, 0.0),
+    (2, 200, 256, 8, 8, 64, "bf16", True, 0.0),
+    (2, 256, 200, 8, 8, 64, "f32", True, 0.0),
+    (2, 200, 256, 8, 8, 64, "f32", True, 0.0),
+    (1, 300, 200, 8, 4, 128, "bf16", False, 0.0),
+    (1, 300, 200, 8, 4, 256, "bf16", False, 5.0),
+)
+# one bf16 step at outputs of order 1 (2^-6) in bf16; 2e-5 in f32, as
+# FLASH_TOL
+FLASH_XTOL = {"f32": dict(atol=2e-5, rtol=2e-5),
+              "bf16": dict(atol=1.56e-2, rtol=1.56e-2)}
+
+
+def flash_cross_inputs(torch, g, B, S, T, Hq, Hkv, hd, dtype):
+    """q (B,S,Hq,hd) and k, v (B,T,Hkv,hd) on the card.  As flash_inputs,
+    but the first head column of q is +c and of k -c, c = sqrt(2)·hd^(1/4),
+    so that every score is centred at -2 (unit spread in bf16): a key that
+    scores 0 outweighs a live one by e^1.5 on average, and the answer that
+    gives the last key tile's rows past T (zeros) a score of 0 moves the
+    output by ~10% at T = 1500 (36 such keys against 1500 live ones), twice
+    FLASH_XTOL at outputs of order 1.  The shift leaves the reference's bf16
+    rounding of q·k as it is at unit-normal inputs (|q·k| up to ~3 sigma)."""
+    dev = "cuda"
+    q_scale = 2.0 if dtype == torch.float32 else 1.0
+    q = q_scale * torch.randn(B, S, Hq, hd, device=dev, generator=g)
+    k = torch.randn(B, T, Hkv, hd, device=dev, generator=g)
+    shift = (2.0 * hd ** 0.5) ** 0.5
+    q[..., 0] = shift
+    k[..., 0] = -shift
+    pos = torch.arange(T, device=dev, dtype=torch.float32) / T
+    v = torch.randn(B, T, Hkv, hd, device=dev, generator=g) \
+        + pos[None, :, None, None]
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def cross_live_pairs(S, T, causal):
+    """(query, key) pairs one head attends: S·T, or with the causal mask at
+    offset 0 the sum over i of min(i + 1, T)."""
+    if not causal:
+        return S * T
+    full = max(S - T, 0)
+    first = min(S, T)
+    return first * (first + 1) // 2 + full * T
+
+
+def flash_cross_phase(torch):
+    """flash_attention_fwd's non-causal, cross-length branch against
+    attention_ref and attention_tiles_ref (at ``K.key_tile``'s tile) on the
+    card at FLASH_XCASES within FLASH_XTOL.  Each case must also tell its
+    answer from the other mask's (the causal one for a non-causal case,
+    the non-causal one for a causal case) and, where the last key tile
+    holds rows past T, from the answer that scores those rows (zeros) as
+    0: the keys zero-padded to a tile multiple, unmasked.  The library
+    time is one ``scaled_dot_product_attention`` call (a boolean mask for
+    causal T != S, offset 0), or with a softcap one compiled
+    ``flex_attention`` call (``flex_library``)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                        attention_tiles_ref)
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rows = []
+    for B, S, T, Hq, Hkv, hd, dname, causal, cap in FLASH_XCASES:
+        label = (f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} hd={hd} {dname} "
+                 + ("causal" if causal else "non-causal")
+                 + (f" softcap={cap:g}" if cap else ""))
+        q, k, v = flash_cross_inputs(torch, g, B, S, T, Hq, Hkv, hd,
+                                     dtypes[dname])
+        kw = dict(causal=causal, softcap=cap)
+        got = K.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (B, S, Hq, hd)
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention_fwd {label}: output misshapen or not "
+              f"finite")
+        block_k = K.key_tile(q.dtype, hd)
+
+        def plain():
+            return attention_ref(q, k, v, **kw)
+        want = plain().float()
+        tiles = attention_tiles_ref(q, k, v, **kw, block_k=block_k).float()
+        tol = FLASH_XTOL[dname]
+        err = float((got.float() - want).abs().max())
+        tiles_err = float((got.float() - tiles).abs().max())
+        check(torch.allclose(got.float(), want, **tol),
+              f"flash_attention_fwd {label}: kernel disagrees with "
+              f"attention_ref (max abs err {err})")
+        check(torch.allclose(got.float(), tiles, **tol),
+              f"flash_attention_fwd {label}: kernel disagrees with "
+              f"attention_tiles_ref (max abs err {tiles_err})")
+        wrong = {"zero": torch.zeros_like(want), "sign": -want,
+                 "other_mask": attention_ref(
+                     q, k, v, causal=not causal, softcap=cap).float()}
+        pad = -T % block_k
+        if pad and (not causal or S > T):
+            kz, vz = (torch.cat([t, t.new_zeros(B, pad, Hkv, hd)], dim=1)
+                      for t in (k, v))
+            wrong["unmasked_tail"] = attention_ref(q, kz, vz, **kw).float()
+            del kz, vz
+        wrong_err = {name: float((w - want).abs().max())
+                     for name, w in wrong.items()}
+        for name, w in wrong.items():
+            check(not torch.allclose(w, want, **tol),
+                  f"flash_attention_fwd {label}: the tolerance cannot tell "
+                  f"the {name} answer from attention_ref")
+        del wrong
+        # the library call: SDPA with no mask, or offset-0 causal as a
+        # boolean mask (its is_causal aligns non-square masks otherwise in
+        # some backends); SDPA takes no softcap, so a capped case times a
+        # compiled flex_attention call
+        lib_err = lib_note = lib_compile_s = None
+        if cap:
+            lib_name = "torch.nn.attention.flex_attention (compiled)"
+            lib, mask_s = flex_library(torch, q, k, v, 0, cap, causal)
+        else:
+            lib_name = "torch.nn.functional.scaled_dot_product_attention"
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            skw = dict(scale=hd ** -0.5, enable_gqa=Hq != Hkv)
+            if causal:
+                i = torch.arange(S, device="cuda")[:, None]
+                j = torch.arange(T, device="cuda")[None, :]
+                skw["attn_mask"] = j <= i
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt, **skw)
+        t0 = time.perf_counter()
+        try:
+            lib_out = lib().transpose(1, 2).float()
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001
+            lib, lib_note = None, (f"{type(exc).__name__}: "
+                                   f"{str(exc).splitlines()[0][:200]}")
+        else:
+            if cap:
+                lib_compile_s = time.perf_counter() - t0 + mask_s
+            lib_err = float((lib_out - want).abs().max())
+            del lib_out
+        times = time_interleaved(torch, {
+            "ms": lambda: K.flash_attention_fwd(q, k, v, **kw),
+            "library_ms": lib}, launches=20, repeats=5)
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * k.numel() * k.element_size()
+        flops = 4 * B * Hq * hd * cross_live_pairs(S, T, causal)
+        row = {"shape": label, "max_abs_err": err, "tol": tol,
+               "tiles_max_abs_err": tiles_err, "tiles_block_k": block_k,
+               "wrong_answer_errs": wrong_err,
+               "mean_abs_out": float(want.abs().mean()), **times,
+               "plain_ms": time_ms(torch, plain, launches=1, repeats=3,
+                                   warmup=1),
+               "plain_checked": "whole case",
+               "library": None if lib is None else lib_name,
+               "library_compile_s": lib_compile_s,
+               "library_max_abs_err": lib_err, "library_note": lib_note}
+        row.update(bound_fields(torch, q.dtype, nbytes, flops, row["ms"]))
+        wgmma = dname == "bf16"
+        row["ptxas"] = ptxas_report(
+            "flash_attention",
+            f"flash_attention_fwd_wgmmaILi{hd}ELb{int(cap > 0)}EE" if wgmma
+            else f"flash_attention_fwd_kernelILi{hd}EE")
+        rows.append(row)
+        print(f"kernel flash_attention_fwd {label}: {json.dumps(row)}",
+              flush=True)
+        del q, k, v, got, want, tiles, lib
     torch.cuda.empty_cache()
     return rows
 
@@ -2191,7 +2404,8 @@ def serving_cpu_parity(torch, setup, pcfg, batches, snap3):
 LM_PARAMS = {"mamba2-130m": (167_598_528, 12),
              "zamba2-1.2b": (1_183_058_816, 21),
              "gemma2-2b": (3_204_165_888, 14),
-             "granite-moe-1b-a400m": (1_384_963_072, 13)}
+             "granite-moe-1b-a400m": (1_384_963_072, 13),
+             "whisper-large-v3": (1_600_990_720, 25)}
 # the serve driver's mode C: lambda 30, alpha 0.01, K 5, eta_in 0.01
 LM_USERS, LM_TOKENS, LM_INNER_STEPS, LM_PROMPT = 4, 16, 5, 8
 # zamba2's personal subset: the shared attention+MLP block and the
@@ -2211,10 +2425,12 @@ MEM_TRACE_ENTRIES = 2_000_000
 # ones
 PREFILL_SHAPES = ((8, 4096), (1, 32768))
 # (t): gemma2 at 2 layers (0 local, 1 global) at a length past its window of
-# 4096, so that the local layer's window binds; its flush on streams of
-# GEMMA2_PARITY_PLEN tokens (the CPU's share of (t) grows with the 256,000
-# vocab times the stream)
-GEMMA2_PARITY_SHAPE, GEMMA2_PARITY_PLEN = (1, 4608), 32
+# 4096, so that the local layer's window binds; prefill only.  Its flush of
+# 2 users was cut for the 1200 s budget: the CPU's prox steps on the
+# 589,824,000-param unembedding took 49.6 s on 32-token streams and 49.1 s
+# on 8-token ones, of a script at 1121 and 1149 s (NVIDIA H100 80GB HBM3 at
+# 700 W); (w) and (k) hold the same subset flush card against CPU
+GEMMA2_PARITY_SHAPE = (1, 4608)
 # (u): granite's personal subset, the unembedding (50,334,720 params a
 # user), 4 users on 128-token streams, as (r)
 GRANITE_SUBSET, GRANITE_USERS, GRANITE_PLEN = "embed/unembed", 4, 128
@@ -2224,6 +2440,16 @@ GRANITE_SUBSET, GRANITE_USERS, GRANITE_PLEN = "embed/unembed", 4, 128
 # every width published (45 leaves, 3,706,691,584 params; the whole model's
 # 671 B params need the multi-device paths), at (1, 128), and 8 decode steps
 GRANITE_PARITY_SHAPE = (2, 256)
+# (x): whisper's personal subset, the unembedding (66,388,480 params a
+# user), 4 users on 128-token streams with the zero frames of its stubbed
+# frontend, as (u); (y): its prefill at its published decoder context of
+# 448 tokens, each row with its 1500 frames; (z): 2 encoder and 2 decoder
+# layers at published widths and enc_len 1500, (2, 64), f32, card against
+# CPU, and 8 decode steps against the card's teacher-forced logits
+WHISPER_SUBSET, WHISPER_USERS, WHISPER_PLEN = "embed/unembed", 4, 128
+WHISPER_PREFILL_SHAPES = ((8, 448), (32, 448))
+WHISPER_CUT = dict(n_layers=2, enc_layers=2)
+WHISPER_PARITY_SHAPE, WHISPER_DECODE = (2, 64), 8
 DEEPSEEK_CUT = dict(n_layers=2, n_experts=16, first_k_dense=1)
 DEEPSEEK_PARAMS = (3_706_691_584, 45)
 DEEPSEEK_SHAPE, DEEPSEEK_DECODE = (1, 128), 8
@@ -2250,6 +2476,16 @@ def lm_leaf_shapes(arch):
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
     hq = cfg.n_heads * cfg.resolved_head_dim
     hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    if cfg.is_encdec:
+        # models/encdec.py: dec_layers (cross, ln1, ln2, ln_x, mlp, self),
+        # embed, enc_layers (attn, ln1, ln2, mlp), enc_norm, final_norm
+        E, f = cfg.enc_layers, cfg.d_ff
+
+        def att(n):
+            return [(n, d, hkv), (n, hq, d), (n, d, hq), (n, d, hkv)]
+        return (att(L) + [(L, d)] * 3 + [(L, d, f), (L, f, d)] + att(L)
+                + [(V, d), (d, V)] + att(E) + [(E, d)] * 2
+                + [(E, d, f), (E, f, d)] + [(d,), (d,)])
     if cfg.ssm is None:
         # models/lm.py: embed, final_norm, then the stacked layers' attn
         # (biases first), norms and MLP (or a MoE without shared experts:
@@ -2283,9 +2519,12 @@ def lm_leaf_shapes(arch):
 def lm_forward_launches(cfg):
     """(ssd_fwd, flash_attention_fwd) launches of one forward evaluation of
     an LM: one ssd_fwd per Mamba2 layer and one flash_attention_fwd per
-    shared-block invocation (ssm_lm), or one flash_attention_fwd per GQA
-    layer (models/lm.py; MLA runs plain)."""
+    shared-block invocation (ssm_lm), one flash_attention_fwd per GQA
+    layer (models/lm.py; MLA runs plain), or per encoder layer and two per
+    decoder layer, self and cross (models/encdec.py)."""
     from repro_torch.models import ssm_lm
+    if cfg.is_encdec:
+        return 0, cfg.enc_layers + 2 * cfg.n_layers
     if cfg.ssm is None:
         return 0, 0 if cfg.mla is not None else cfg.n_layers
     return cfg.n_layers, ssm_lm.n_shared_slots(cfg)
@@ -2394,11 +2633,14 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
                     lm.lm_hidden(cfg, run.params, batch["tokens"][:, 0])
         del heads
         st = srv.stats
-        # K prox steps and nu's gradient per mode-C cohort call
+        # K prox steps and nu's gradient per mode-C cohort call; an encdec
+        # arch's decode also runs its encoder once, for the cross K/V of the
+        # decode cache (under the users' vmap: one launch a layer)
         evals = (LM_INNER_STEPS + 1) * st["cohort_calls"]
         per = lm_forward_launches(cfg)
+        decode_cache = cfg.enc_layers if cfg.is_encdec else 0
         expect = {"ssd_fwd": per[0] * evals,
-                  "flash_attention_fwd": per[1] * evals}
+                  "flash_attention_fwd": per[1] * evals + decode_cache}
         # the window apply of the one bank: apply_rows_q or apply_rows one
         # launch per tree of the personal leaves (one dtype combination)
         n_personal = len(tree_leaves(spec.extract(run.params))) \
@@ -2432,6 +2674,9 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
             "window_apply_launches": apply_launches,
             "ssd_fwd_launches": ssd_launches,
             "flash_attention_fwd_launches": flash_launches,
+            "flash_attention_fwd_launches_per_evaluation":
+                (flash_launches - decode_cache) / evals,
+            "flash_attention_fwd_launches_decode_cache": decode_cache,
             "expected_launches": expect, "loss_evaluations": evals,
             "head_loss": head_loss.tolist(),
             "global_loss": glob_loss.tolist()}
@@ -2670,23 +2915,29 @@ def profile_shares(torch, fn, compare_readers=False, moe=False):
 
 
 def prefill_phase(torch, cfg, params, label, calls=3,
-                  compare_readers=False):
-    """(g) / (j) / (s): ``make_prefill_step`` at full width, bf16
-    activations, at PREFILL_SHAPES: wall per call (``calls`` calls after a
-    warm-up), ssd_fwd and flash_attention_fwd launches (per
+                  compare_readers=False, shapes=PREFILL_SHAPES):
+    """(g) / (j) / (s) / (v) / (y): ``make_prefill_step`` at full width,
+    bf16 activations, at ``shapes`` (B, S): wall per call (``calls`` calls
+    after a warm-up), ssd_fwd and flash_attention_fwd launches (per
     ``lm_forward_launches``, each call), the kernels the ssd_fwd calls
     launched, the peak of device memory, and one call under the
     profiler (the first shape's read by both readers with
-    ``compare_readers``)."""
+    ``compare_readers``).  An encdec arch's batch carries the zero frames
+    of its stubbed frontend, (B, enc_len, d_model), and its rows the
+    encoder frames per second beside the decoder tokens."""
     from repro_torch.kernels.ssd import kernel as KS
     from repro_torch.launch import steps
     step = steps.make_prefill_step(cfg)
     g = torch.Generator(device="cuda").manual_seed(2)
     per_call = lm_forward_launches(cfg)
     out = {}
-    for B, S in PREFILL_SHAPES:
+    for B, S in shapes:
         batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
                                          device="cuda", dtype=torch.int32)}
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros((B, cfg.enc_len, cfg.d_model),
+                                          dtype=cfg.activation_dtype,
+                                          device="cuda")
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             logits = step(params, batch)
@@ -2715,6 +2966,8 @@ def prefill_phase(torch, cfg, params, label, calls=3,
         row = {"wall_ms": [w * 1e3 for w in walls],
                "wall_ms_median": statistics.median(walls) * 1e3,
                "tokens_per_s": B * S / statistics.median(walls),
+               "encoder_frames_per_s": B * cfg.enc_len
+               / statistics.median(walls) if cfg.is_encdec else None,
                "ssd_fwd_launches_per_call": launches[0] // calls,
                "ssd_fwd_kernels_per_call": ssd_kernels / calls,
                "flash_attention_fwd_launches_per_call": launches[1] // calls,
@@ -2736,13 +2989,18 @@ def _close(torch, got, want, tol):
 
 
 def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
-                  plen=128, flush=True):
-    """(h) / (k) / (t): ``arch`` at full width but ``n_layers`` layers, f32,
-    on the card and on the CPU: prefill_logits at ``shape`` (B, S), and with
-    ``flush`` the heads of one mode-C flush of 2 users on streams of
-    ``plen`` tokens (``subset`` personalized, else the whole model).  QKV
-    biases, zero at init, are drawn non-zero; with local/global
-    alternation, an all-global copy of the config must give other logits."""
+                  plen=128, flush=True, card_init=False):
+    """(h) / (k) / (t) / (w): ``arch`` at full width but ``n_layers``
+    layers, f32, on the card and on the CPU: prefill_logits at ``shape``
+    (B, S), and with ``flush`` the heads of one mode-C flush of 2 users on
+    streams of ``plen`` tokens (``subset`` personalized, else the whole
+    model).  QKV biases, zero at init, are drawn non-zero; with local/global
+    alternation, an all-global copy of the config must give other logits.
+    With ``card_init`` the params are drawn on the card by the init's own
+    laws from a CUDA generator and copied to the host, as (w)'s deepseek
+    cut is: the host's one-threaded generator took 12.58 and 11.45 s for
+    (t)'s two cuts, whose 256,000- and 92,416-row embeddings hold most of
+    their params (beside an NVIDIA H100 80GB HBM3 at 700 W)."""
     from repro_torch.configs import get_config
     from repro_torch.core import PersAFLConfig
     from repro_torch.data import synthetic_token_batch
@@ -2752,15 +3010,21 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
     from repro_torch.tree import tree_leaves, tree_map
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
-    gen = torch.Generator().manual_seed(0)
+    dev = "cuda" if card_init else "cpu"
+    gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    p_cpu = api.init_params(cfg, gen, "cpu")
-    if cfg.qkv_bias:
-        attn = p_cpu["layers"]["attn"]
-        for k in ("bq", "bk", "bv"):
-            attn[k] = 0.5 * torch.randn(attn[k].shape, generator=gen)
+    with torch.device(dev):
+        params = api.init_params(cfg, gen, dev)
+        if cfg.qkv_bias:
+            attn = params["layers"]["attn"]
+            for k in ("bq", "bk", "bv"):
+                attn[k] = 0.5 * torch.randn(attn[k].shape, generator=gen)
+    if card_init:
+        p_gpu, p_cpu = params, tree_map(lambda x: x.cpu(), params)
+    else:
+        p_cpu, p_gpu = params, tree_map(lambda x: x.cuda(), params)
+    del params
     init_s = time.perf_counter() - t0
-    p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
     tokens = torch.from_numpy(synthetic_token_batch(5, *shape,
                                                     cfg.vocab)["tokens"])
     _reset_lm_launches()
@@ -2792,8 +3056,9 @@ def lm_cpu_parity(torch, arch, n_layers, label, subset=None, shape=(2, 256),
     print(f"{label} card vs CPU, {arch} at {n_layers} layers f32, prefill "
           f"{tuple(shape)}: logits max |diff| {diff:.3e} (tol "
           f"{LM_PREFILL_TOL}; card launches ssd_fwd/flash_attention_fwd "
-          f"{launches}); all-global copy max |diff| {glob_diff}; host init "
-          f"{init_s:.2f} s, CPU prefill {cpu_prefill_s:.2f} s"
+          f"{launches}); all-global copy max |diff| {glob_diff}; "
+          f"{'card init and copy to the host' if card_init else 'host init'}"
+          f" {init_s:.2f} s, CPU prefill {cpu_prefill_s:.2f} s"
           + (f"; (token, slot) pairs dropped by layer, card {drops['cuda']} "
              f"CPU {drops['cpu']}" if drops else ""), flush=True)
     if drops is not None:
@@ -2854,9 +3119,9 @@ def gemma2_phases(torch):
     ``--personal-subset embed/unembed``, fp32 then int8, one window apply
     each, the int8 server's second flush split by allocating line), (s) its prefill at PREFILL_SHAPES, 2 timed calls
     each, (t) card against CPU: gemma2 at 2 layers (the window binds at
-    GEMMA2_PARITY_SHAPE) with one flush, and codeqwen1.5-7b at 2 layers
-    (QKV biases, MHA 32/32 of 128, rope theta 1e6), prefill only.  Returns
-    (r)'s and (s)'s rows."""
+    GEMMA2_PARITY_SHAPE) and codeqwen1.5-7b at 2 layers (QKV biases, MHA
+    32/32 of 128, rope theta 1e6), prefill only.  Returns (r)'s and (s)'s
+    rows."""
     gl, (g_cfg, g_params) = lm_serving_phase(
         torch, "gemma2-2b", "(r)", subset=GEMMA2_SUBSET, users=GEMMA2_USERS,
         plen=GEMMA2_PLEN, split_memory=True)
@@ -2865,9 +3130,10 @@ def gemma2_phases(torch):
     del g_params
     torch.cuda.empty_cache()
     lm_cpu_parity(torch, "gemma2-2b", 2, "(t)", subset=GEMMA2_SUBSET,
-                  shape=GEMMA2_PARITY_SHAPE, plen=GEMMA2_PARITY_PLEN)
+                  shape=GEMMA2_PARITY_SHAPE, flush=False, card_init=True)
     torch.cuda.empty_cache()
-    lm_cpu_parity(torch, "codeqwen1.5-7b", 2, "(t)", flush=False)
+    lm_cpu_parity(torch, "codeqwen1.5-7b", 2, "(t)", flush=False,
+                  card_init=True)
     torch.cuda.empty_cache()
     return gl, gprefill
 
@@ -2993,6 +3259,108 @@ def moe_phases(torch):
     deepseek_cpu_parity(torch, "(w)")
     torch.cuda.empty_cache()
     return ul, uprefill
+
+
+def encdec_cpu_parity(torch, label):
+    """(z): whisper-large-v3 cut to WHISPER_CUT (2 encoder and 2 decoder
+    layers, every width published, enc_len 1500), f32, on the card and on
+    the CPU at WHISPER_PARITY_SHAPE with unit-normal frames: the loss and
+    ``prefill_logits`` within LM_PREFILL_TOL, the card's kernel launches
+    (6 a forward evaluation: 2 non-causal, 2 causal, 2 cross); then
+    WHISPER_DECODE decode steps on the card (the cross K/V of
+    ``init_cache``, plain ``sdpa``) against the card's teacher-forced
+    logits of those tokens within DECODE_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.layers import unembed
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              dtype="float32", **WHISPER_CUT)
+    t0 = time.perf_counter()
+    p_cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init_s = time.perf_counter() - t0
+    p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+    n_params = sum(x.numel() for x in tree_leaves(p_cpu))
+    B, S = WHISPER_PARITY_SHAPE
+    data = synthetic_token_batch(5, B, S, cfg.vocab)
+    data["frames"] = np.random.RandomState(6).randn(
+        B, cfg.enc_len, cfg.d_model).astype(np.float32)
+    cpu = {k: torch.from_numpy(v) for k, v in data.items()}
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    res = {}
+    _reset_lm_launches()
+    with torch.no_grad():
+        for dev, params, batch in (("cuda", p_gpu, gpu), ("cpu", p_cpu, cpu)):
+            t0 = time.perf_counter()
+            res[dev] = {"loss": api.loss_fn(cfg, params, batch).cpu(),
+                        "prefill": api.prefill_logits(cfg, params,
+                                                      batch).cpu(),
+                        "s": time.perf_counter() - t0}
+            if dev == "cuda":
+                launches = _lm_launches()
+                toks = batch["tokens"][:, :WHISPER_DECODE]
+                enc_h = ed.encode(cfg, params, batch["frames"])
+                want = unembed(params["embed"], ed.decode_full(
+                    cfg, params, toks, enc_h), cfg.final_softcap)
+                cache = api.init_cache(cfg, params, {
+                    "tokens": toks[:, :1], "frames": batch["frames"]},
+                    WHISPER_DECODE, torch.float32)
+                steps = []
+                for pos in range(WHISPER_DECODE):
+                    logits, cache = api.decode_step(
+                        cfg, params, cache, toks[:, pos:pos + 1], pos)
+                    steps.append(logits[:, 0])
+                dec = torch.stack(steps, dim=1)
+                dec_diff = float((dec - want).abs().max())
+                dec_ok = _close(torch, dec, want, DECODE_TOL)
+    g, c = res["cuda"], res["cpu"]
+    diffs = {k: float((g[k] - c[k]).abs().max()) for k in ("loss",
+                                                            "prefill")}
+    want_launches = tuple(2 * n for n in lm_forward_launches(cfg))
+    print(f"{label} card vs CPU, whisper-large-v3 cut to "
+          f"{json.dumps(WHISPER_CUT)} ({n_params} params, host init "
+          f"{init_s:.2f} s), f32, {WHISPER_PARITY_SHAPE} against "
+          f"{cfg.enc_len} frames: loss card {float(g['loss']):.6f} CPU "
+          f"{float(c['loss']):.6f}, max |diff| {json.dumps(diffs)} (tol "
+          f"{LM_PREFILL_TOL}); {WHISPER_DECODE} decode steps vs the card's "
+          f"teacher-forced logits max |diff| {dec_diff:.3e} (tol "
+          f"{DECODE_TOL}); launches ssd_fwd/flash_attention_fwd of the "
+          f"card's loss and prefill {launches} (expected {want_launches}); "
+          f"walls card {g['s']:.2f} s CPU {c['s']:.2f} s", flush=True)
+    for k in ("loss", "prefill"):
+        check(_close(torch, g[k], c[k], LM_PREFILL_TOL),
+              f"{label} whisper {k} card vs CPU differs by {diffs[k]}")
+    check(dec_ok, f"{label} whisper: decode differs from the teacher-forced "
+                  f"logits by {dec_diff}")
+    check(launches == want_launches,
+          f"{label} whisper: the card's loss and prefill launched "
+          f"ssd_fwd/flash_attention_fwd {launches} times, expected "
+          f"{want_launches}")
+    return {"diffs": diffs, "decode_diff": dec_diff, "init_s": init_s}
+
+
+def whisper_phases(torch):
+    """(x) whisper-large-v3 served at full width through
+    ``launch.serve.main`` (WHISPER_USERS users on WHISPER_PLEN-token
+    streams with the zero frames, ``--personal-subset embed/unembed``, fp32
+    then int8, one window apply each), (y) its prefill at
+    WHISPER_PREFILL_SHAPES, 2 timed calls each, (z) card against CPU at
+    WHISPER_CUT.  Returns (x)'s and (y)'s rows."""
+    with timed("(x)"):
+        xl, (x_cfg, x_params) = lm_serving_phase(
+            torch, "whisper-large-v3", "(x)", subset=WHISPER_SUBSET,
+            users=WHISPER_USERS, plen=WHISPER_PLEN)
+    with timed("(y)"):
+        xprefill = prefill_phase(torch, x_cfg, x_params, "(y)", calls=2,
+                                 shapes=WHISPER_PREFILL_SHAPES)
+    del x_params
+    torch.cuda.empty_cache()
+    with timed("(z)"):
+        encdec_cpu_parity(torch, "(z)")
+    torch.cuda.empty_cache()
+    return xl, xprefill
 
 
 # ---------------------------------------------------------------------------
@@ -3890,20 +4258,24 @@ def run_phases(torch):
     zshapes = lm_leaf_shapes("zamba2-1.2b")
     gshapes = lm_leaf_shapes("gemma2-2b")
     ushapes = lm_leaf_shapes("granite-moe-1b-a400m")
+    wshapes = lm_leaf_shapes("whisper-large-v3")
     for arch, shapes in (("gemma2-2b", gshapes),
-                         ("granite-moe-1b-a400m", ushapes)):
+                         ("granite-moe-1b-a400m", ushapes),
+                         ("whisper-large-v3", wshapes)):
         check((sum(int(np.prod(sh)) for sh in shapes), len(shapes))
               == LM_PARAMS[arch],
               f"{arch}: {len(shapes)} leaves of the config's shapes")
     # zamba2's personal subset: embed/unembed and the 9 shared leaves;
-    # gemma2's and granite's: embed/unembed
+    # gemma2's, granite's and whisper's: embed/unembed (whisper's is its
+    # 15th leaf, after the decoder's 13 and embed/tok)
     with timed("kernels"):
         results = kernel_phase(torch, cnn_shapes, (
             ("mamba2-130m 12 leaves", mshapes),
             ("zamba2-1.2b shared,embed/unembed 10 leaves",
              [zshapes[1]] + zshapes[12:]),
             ("gemma2-2b embed/unembed 1 leaf", [gshapes[1]]),
-            ("granite-moe-1b-a400m embed/unembed 1 leaf", [ushapes[1]])))
+            ("granite-moe-1b-a400m embed/unembed 1 leaf", [ushapes[1]]),
+            ("whisper-large-v3 embed/unembed 1 leaf", [wshapes[14]])))
     lm_trees = []
     for arch, shapes in (("mamba2-130m", mshapes), ("zamba2-1.2b", zshapes)):
         n_params = sum(int(np.prod(sh)) for sh in shapes)
@@ -3920,6 +4292,8 @@ def run_phases(torch):
         results["ssd_fwd"] = ssd_kernel_phase(torch)
     with timed("flash_attention_fwd"):
         results["flash_attention_fwd"] = flash_kernel_phase(torch)
+    with timed("flash_attention_fwd non-causal and cross-length"):
+        results["flash_attention_fwd"] += flash_cross_phase(torch)
     imm_ms = immediate_apply_ms(torch, setup[1])
     print(f"immediate apply as the main path runs it (H2D copy of one "
           f"host row + {len(cnn_shapes)} launches): {imm_ms:.4f} ms",
@@ -3965,6 +4339,8 @@ def run_phases(torch):
         gl, gprefill = gemma2_phases(torch)
     with timed("(u)-(w)"):
         ul, uprefill = moe_phases(torch)
+    with timed("(x)-(z)"):
+        xl, xprefill = whisper_phases(torch)
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -4028,6 +4404,16 @@ def run_phases(torch):
             entry["launches_granite_prefill_per_call"] = {
                 k: v["flash_attention_fwd_launches_per_call"]
                 for k, v in uprefill.items()}
+            # whisper-large-v3: (x)'s serving runs (96 a loss evaluation,
+            # 32 for the decode cache's encoder) and (y)'s prefill calls
+            entry["launches_whisper"] = {
+                k: v["flash_attention_fwd_launches"] for k, v in xl.items()}
+            entry["launches_whisper_per_evaluation"] = {
+                k: v["flash_attention_fwd_launches_per_evaluation"]
+                for k, v in xl.items()}
+            entry["launches_whisper_prefill_per_call"] = {
+                k: v["flash_attention_fwd_launches_per_call"]
+                for k, v in xprefill.items()}
         elif name not in LOCAL_STEPS:
             entry["launches_fig2_baselines"] = base_launches.get(name, 0)
             entry["launches_scenario"] = {
@@ -4038,7 +4424,7 @@ def run_phases(torch):
                 label: sum(v["window_apply_launches"] for v in runs.values()
                            if v["window_apply_kernel"] == name)
                 for label, runs in (("(f)", lm), ("(i)", zl), ("(r)", gl),
-                                    ("(u)", ul))}
+                                    ("(u)", ul), ("(x)", xl))}
         kernels.append(entry)
     kernels[0]["immediate_apply_ms"] = imm_ms
     return card, kernels

@@ -3,22 +3,37 @@
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:69
 // flash_attention_fwd (body _flash_kernel at :24).  For batch row b and
-// query head h, with kv head h / (Hq / Hkv):
+// query head h, with kv head h / (Hq / Hkv), queries q (rows, S, Hq, hd)
+// and keys and values k, v (rows, T, Hkv, hd):
 //
 //   s[i][j] = cap * tanh((q[i].k[j] * hd^-0.5) / cap)    (cap > 0 only)
-//   live    = j <= i and i - window < j (window > 0) and j < S
+//   live    = j < T and (j <= i where causal) and i - window < j (window > 0)
 //   out[i]  = sum_{live j} exp(s[i][j]) v[j] / sum_{live j} exp(s[i][j])
 //
 // with the softmax in f32, whatever the storage dtype (f32 or bf16) of q, k,
-// v and out.  The mask is always causal: the port runs every other mask in
-// plain PyTorch (repro_torch/models/attention.py), so the kernel has no
-// non-causal walk.  Both kernels below stream only the key tiles that meet a
-// block's causal cone and window: from the tile that holds q0 - window + 1
-// to the diagonal tile (the TPU kernel streams every tile up to the
-// diagonal).  A masked score is SELECTED to -inf and its weight to exactly 0,
-// never multiplied by a mask; a row whose first tiles are wholly masked keeps
-// m = -inf and l = 0 until its first live key, and its rescale factor is
-// then taken as 1, not exp(-inf + inf).
+// v and out.  Query row i sits at position i whatever T is: causal with
+// T != S is offset 0, as in _flash_kernel, and the mask of a row past T
+// holds every key up to T.  Both kernels below stream only the key tiles
+// that a block's rows can see: from the tile that holds q0 - window + 1
+// (the first tile without a window) to the last tile of T, or, when causal,
+// to the smaller of that and the diagonal tile (the TPU kernel streams
+// every tile up to the diagonal, or all of them).  A masked score is
+// SELECTED to -inf and its weight to exactly 0, never multiplied by a mask;
+// a row whose first tiles are wholly masked keeps m = -inf and l = 0 until
+// its first live key, and its rescale factor is then taken as 1, not
+// exp(-inf + inf).  A row that sees no key at all (possible only with a
+// window narrower than its distance past T) gets zeros, as the plain model
+// attention_tiles_ref gives it; attention_ref and the TPU kernel, whose
+// masked logits are a finite -1e30, give it the mean of v over the keys.
+// No model path makes such a row.
+//
+// Non-causal and cross-length attention (whisper's encoder: 1500 x 1500;
+// its cross-attention: 448 x 1500) meet one hazard the causal walk did not:
+// the wgmma kernel's last key tile reads rows past T, which TMA fills with
+// zeros, and a zero key scores exactly 0.  The causal mask hid them (j <= i
+// < S = T); without it the past-T keys are selected to -inf like any masked
+// key: the tile holding T is an edge tile and takes the mask code.  The f32
+// kernel bounds its loads by T.
 //
 // What bounds it on an H100 SXM.  Per head it does 4 * hd FLOPs for each
 // live (query, key) pair (q.k and p.v); it must read q, k and v once and
@@ -52,18 +67,19 @@
 //     have a whole tile's products to land in (with one pair a stage the
 //     kernel was 23-37% slower).  At hd 64 and 128 one pair a stage serves
 //     both (their three stages leave the slack; the split slowed them
-//     7-17%).  A key tile never reads into the next batch row, and rows
-//     past S arrive as zeros.  The maps are encoded on the host at every
-//     call (cuTensorMapEncodeTiled, reached through
-//     cudaGetDriverEntryPoint, so nothing links libcuda; the whole C call,
-//     encoding included, took 6.4 us of host time on an NVIDIA H100 80GB
-//     HBM3 at 700 W).  The producer gives its registers to the consumers
+//     7-17%).  A tile never reads into the next batch row: rows past S
+//     (of Q) and past T (of K and V) arrive as zeros.  The maps are
+//     encoded on the host at every call (cuTensorMapEncodeTiled, reached
+//     through cudaGetDriverEntryPoint, so nothing links libcuda; the whole
+//     C call, encoding included, took 6.4 us of host time on an NVIDIA H100
+//     80GB HBM3 at 700 W).  The producer gives its registers to the consumers
 //     (setmaxnreg 24 / 240).
 //   * S = Q.K^T: wgmma with bf16 operands from shared memory (both K-major),
 //     f32 accumulators, hd / 16 instructions over the column slices.
 //   * Online softmax in registers: raw scores (capped first, cap * tanh,
-//     where cap > 0) masked by select only on the diagonal, window-edge and
-//     past-S tiles of each consumer (interior tiles skip the mask code), row
+//     where cap > 0) masked by select only on the diagonal (when causal),
+//     window-edge and past-T tiles of each consumer (interior tiles skip the
+//     mask code), row
 //     max and sum reduced over the 4 lanes that share an accumulator row,
 //     weights exp2(s * mul - m) with log2 e (and the cap) folded into mul
 //     (ex2.approx.ftz, one FMA before it).  l sums the f32 weights; P goes to
@@ -91,9 +107,11 @@
 //   * Out: O / l as bf16 into the consumer's own 64 rows of the Q tile, in
 //     the swizzled layout, then one TMA store a column slice (rows past S
 //     are clipped by the map).
-//   * Block order: within each (b, h), query tiles are issued from the last
-//     (the heaviest causal cone) to the first, so the grid's tail is light,
-//     and the blocks of one (b, h) run together and share its K/V in L2.
+//   * Block order: within each (b, h), causal query tiles are issued from the
+//     last (the heaviest causal cone) to the first, so the grid's tail is
+//     light; without the causal mask every tile walks the same keys and they
+//     go in order.  The blocks of one (b, h) run together and share its K/V
+//     in L2.
 // What it still leaves: the exp2 of every score competes with the tensor
 // cores (at hd 64, 128 x 128 weights take the multi-function unit as long
 // as the tile's products take the tensor cores), and the softcap's tanh
@@ -120,7 +138,7 @@
 //   3. adds P.V for its 4 rows and hd/16 columns.
 // Shared memory is 3 * 64 * hd + 64 * 64 floats: 64 KB at hd = 64, 112 KB at
 // 128, 208 KB at 256 (one block per SM there).  Rows past S are computed but
-// not written; keys past S are masked.
+// not written; keys past T are not read (zeros) and are masked.
 //
 // The launch goes on the stream the caller passes (PyTorch's current
 // stream); the kernels allocate nothing and do not synchronise.
@@ -162,20 +180,20 @@ constexpr size_t smem_bytes() {
   return (3 * static_cast<size_t>(D) * kTile + kTile * kTile) * sizeof(float);
 }
 
-// Rows [row0, row0 + 64) of head `head` of a (rows, S, H, D) tensor,
-// transposed: dst[d * 64 + r].  Rows past S are zeros.  A thread reads 4
+// Rows [row0, row0 + 64) of head `head` of a (rows, L, H, D) tensor,
+// transposed: dst[d * 64 + r].  Rows past L are zeros.  A thread reads 4
 // consecutive columns of one row; consecutive threads take consecutive rows,
 // so the shared-memory writes hit consecutive banks.
 template <int D>
 __device__ __forceinline__ void stage_transposed(float* dst,
                                                  const float* __restrict__ src,
-                                                 int64_t b, int row0, int S,
+                                                 int64_t b, int row0, int L,
                                                  int H, int head) {
   const int r = threadIdx.x % kTile;
   const int s = row0 + r;
   for (int g = threadIdx.x / kTile; g < D / 4; g += kThreads / kTile) {
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < S) load4(src + ((b * S + s) * H + head) * D + 4 * g, v);
+    if (s < L) load4(src + ((b * L + s) * H + head) * D + 4 * g, v);
 #pragma unroll
     for (int e = 0; e < 4; ++e) dst[(4 * g + e) * kTile + r] = v[e];
   }
@@ -185,29 +203,29 @@ __device__ __forceinline__ void stage_transposed(float* dst,
 template <int D>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ src,
-                                           int64_t b, int row0, int S, int H,
+                                           int64_t b, int row0, int L, int H,
                                            int head) {
   constexpr int kG = D / 4;
   for (int i = threadIdx.x; i < kTile * kG; i += kThreads) {
     const int r = i / kG, g = i - r * kG;
     const int s = row0 + r;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < S) load4(src + ((b * S + s) * H + head) * D + 4 * g, v);
+    if (s < L) load4(src + ((b * L + s) * H + head) * D + 4 * g, v);
     *reinterpret_cast<float4*>(dst + r * D + 4 * g) =
         make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// q, out: [rows, S, Hq, D]; k, v: [rows, S, Hkv, D]; Hq % Hkv == 0 (the
+// q, out: [rows, S, Hq, D]; k, v: [rows, T, Hkv, D]; Hq % Hkv == 0 (the
 // wrapper checks).  Grid (ceil(S / 64), Hq, rows).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_fwd_kernel(float* __restrict__ out,
                                const float* __restrict__ q,
                                const float* __restrict__ k,
-                               const float* __restrict__ v, int S, int Hq,
-                               int Hkv, int window, float softcap,
-                               float scale) {
+                               const float* __restrict__ v, int S, int T,
+                               int Hq, int Hkv, int window, int causal,
+                               float softcap, float scale) {
   constexpr int kCols = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* sQt = reinterpret_cast<float*>(smem4);  // [D][64]
@@ -227,7 +245,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // the key tiles any row of this block can see
   const int q_last = min(q0 + kTile, S) - 1;
-  const int kt_end = q_last / kTile + 1;
+  const int t_tiles = (T + kTile - 1) / kTile;
+  const int kt_end = causal ? min(q_last / kTile + 1, t_tiles) : t_tiles;
   const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
 
   float m[kRows], l[kRows], o[kRows][kCols];
@@ -242,8 +261,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // Q is staged; the previous tile's readers are done
-    stage_transposed<D>(sKt, k, b, k0, S, Hkv, hk);
-    stage_rows<D>(sV, v, b, k0, S, Hkv, hk);
+    stage_transposed<D>(sKt, k, b, k0, T, Hkv, hk);
+    stage_rows<D>(sV, v, b, k0, T, Hkv, hk);
     __syncthreads();
 
     // 1. raw scores q.k of rows 4ty+i against keys 4tx+j
@@ -276,8 +295,8 @@ __global__ void __launch_bounds__(kThreads)
         const int kj = k0 + 4 * tx + j;
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const bool live =
-            kj < S && kj <= qi && (window <= 0 || kj > qi - window);
+        const bool live = kj < T && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
         s[i][j] = live ? x : -INFINITY;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -727,11 +746,11 @@ __device__ __forceinline__ void issue_pv(
 
 // What a consumer thread's softmax needs to know of its rows: the
 // consumer's first row, this thread's row (and row + 8), its column quad,
-// the factor cap_in that takes a raw score into the cap's tanh (kernels
-// with a softcap), and mul, the factor into log2 units of a raw (or
-// capped) score.
+// the keys' length T, the window, whether the mask is causal, the factor
+// cap_in that takes a raw score into the cap's tanh (kernels with a
+// softcap), and mul, the factor into log2 units of a raw (or capped) score.
 struct TileRows {
-  int first, row, cq, S, window;
+  int first, row, cq, T, window, causal;
   float cap_in, mul;
 };
 
@@ -764,7 +783,9 @@ __device__ __forceinline__ void tile_weights(float (&s)[N / 2], float (&m)[2],
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) s[e] = cap_tanh(s[e] * q.cap_in);
   }
-  const bool edge = k0 + N - 1 > q.first || k0 + N > q.S ||
+  // the diagonal tile (causal), the tile that holds T (its rows past T are
+  // TMA's zeros, which would score 0) and the window's first tile
+  const bool edge = (q.causal && k0 + N - 1 > q.first) || k0 + N > q.T ||
                     (q.window > 0 && k0 <= q.first + 63 - q.window);
   if (edge) {
 #pragma unroll
@@ -773,8 +794,8 @@ __device__ __forceinline__ void tile_weights(float (&s)[N / 2], float (&m)[2],
       for (int e = 0; e < 4; ++e) {
         const int qi = q.row + (e >> 1) * 8;
         const int kj = k0 + 8 * j + 2 * q.cq + (e & 1);
-        const bool live =
-            kj < q.S && kj <= qi && (q.window <= 0 || kj > qi - q.window);
+        const bool live = kj < q.T && (!q.causal || kj <= qi) &&
+                          (q.window <= 0 || kj > qi - q.window);
         s[4 * j + e] = live ? s[4 * j + e] : -INFINITY;
       }
     }
@@ -854,7 +875,7 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// q, out: (rows, S, Hq * D); k, v: (rows, S, Hkv * D), as tensor maps with
+// q, out: (rows, S, Hq * D); k, v: (rows, T, Hkv * D), as tensor maps with
 // 64-column boxes of kBlockQ (q), WgmmaCfg<D>::kBlockK (k, v) and 64 (out)
 // rows.  Grid (ceil(S / kBlockQ), Hq, rows), kWgmmaThreads threads.  kCap:
 // softcap > 0 (an instance of its own, so that the kernel without a cap
@@ -865,8 +886,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               const __grid_constant__ CUtensorMap to, int S,
-                              int Hq, int Hkv, int window, float softcap,
-                              float scale) {
+                              int T, int Hq, int Hkv, int window, int causal,
+                              float softcap, float scale) {
   using Cfg = WgmmaCfg<D>;
   constexpr int kBlockK = Cfg::kBlockK;
   constexpr int kStages = Cfg::kStages;
@@ -883,14 +904,22 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
   const uint32_t full_v = kSplit ? empty_v + 8 * kStages : full_k;
   const uint32_t empty_k = kSplit ? full_v + 8 * kStages : empty_v;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the heaviest tiles first
+  // causal: the heaviest cones first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * kBlockQ;
   const int q_last = min(q0 + kBlockQ, S) - 1;
-  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kBlockK : 0;
-  const int n_tiles = q_last / kBlockK + 1 - kt_begin;
+  const int t_tiles = (T + kBlockK - 1) / kBlockK;
+  const int kt_end =
+      causal ? min(q_last / kBlockK + 1, t_tiles) : t_tiles;
+  // at least one tile, so that the consumers' first product has a stage to
+  // wait for: a block whose window starts past T walks T's last tile, every
+  // key of it masked for its rows (their out is 0)
+  const int kt_begin =
+      min(window > 0 ? max(q0 - window + 1, 0) / kBlockK : 0, kt_end - 1);
+  const int n_tiles = kt_end - kt_begin;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -951,7 +980,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
   const int lane = t % 32;
   const int r_first = q0 + 64 * wg;
   const TileRows rows{r_first, r_first + 16 * (t / 32) + lane / 4, lane % 4,
-                      S, window, kCap ? scale / softcap : 0.f,
+                      T, window, causal, kCap ? scale / softcap : 0.f,
                       kCap ? softcap * kLog2e : scale * kLog2e};
   const uint32_t sQw = sQ + wg * 64 * kSliceRowBytes;
 
@@ -1075,18 +1104,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, S, cols) bf16 tensor as a 3-D tensor map whose box is 64
+// A (rows, L, cols) bf16 tensor as a 3-D tensor map whose box is 64
 // columns (128 bytes, swizzled) by box_rows rows of one batch row; rows past
-// S read as zeros and are not written.
-bool encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int cols,
+// L read as zeros and are not written.
+bool encode_map(CUtensorMap* map, const void* ptr, int rows, int L, int cols,
                 int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(cols) * 2 * S};
+                                 static_cast<cuuint64_t>(cols) * 2 * L};
   const cuuint32_t box[3] = {kSliceCols, static_cast<cuuint32_t>(box_rows),
                              1};
   const cuuint32_t elem[3] = {1, 1, 1};
@@ -1098,8 +1127,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int rows, int S, int cols,
 
 template <int D>
 int launch_wgmma(void* out, const void* q, const void* k, const void* v,
-                 int rows, int S, int Hq, int Hkv, int window, float softcap,
-                 cudaStream_t stream) {
+                 int rows, int S, int T, int Hq, int Hkv, int window,
+                 int causal, float softcap, cudaStream_t stream) {
   const uintptr_t addrs =
       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(q) |
       reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
@@ -1107,8 +1136,8 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v,
   CUtensorMap tq, tk, tv, to;
   constexpr int kBlockK = WgmmaCfg<D>::kBlockK;
   if (!encode_map(&tq, q, rows, S, Hq * D, kBlockQ) ||
-      !encode_map(&tk, k, rows, S, Hkv * D, kBlockK) ||
-      !encode_map(&tv, v, rows, S, Hkv * D, kBlockK) ||
+      !encode_map(&tk, k, rows, T, Hkv * D, kBlockK) ||
+      !encode_map(&tv, v, rows, T, Hkv * D, kBlockK) ||
       !encode_map(&to, out, rows, S, Hq * D, 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1122,15 +1151,15 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v,
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, rows);
-  kernel<<<grid, kWgmmaThreads, bytes, stream>>>(tq, tk, tv, to, S, Hq, Hkv,
-                                                 window, softcap, scale);
+  kernel<<<grid, kWgmmaThreads, bytes, stream>>>(
+      tq, tk, tv, to, S, T, Hq, Hkv, window, causal, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(void* out, const void* q, const void* k, const void* v, int rows,
-           int S, int Hq, int Hkv, int window, float softcap,
-           cudaStream_t stream) {
+           int S, int T, int Hq, int Hkv, int window, int causal,
+           float softcap, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_fwd_kernel<D>,
@@ -1141,24 +1170,24 @@ int launch(void* out, const void* q, const void* k, const void* v, int rows,
   const dim3 grid((S + kTile - 1) / kTile, Hq, rows);
   flash_attention_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<float*>(out), static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v), S, Hq, Hkv,
-      window, softcap, scale);
+      static_cast<const float*>(k), static_cast<const float*>(v), S, T, Hq,
+      Hkv, window, causal, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(int D, void* out, const void* q, const void* k,
-                 const void* v, int rows, int S, int Hq, int Hkv, int window,
-                 float softcap, cudaStream_t stream) {
+                 const void* v, int rows, int S, int T, int Hq, int Hkv,
+                 int window, int causal, float softcap, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<64>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                        stream);
+      return launch<64>(out, q, k, v, rows, S, T, Hq, Hkv, window, causal,
+                        softcap, stream);
     case 128:
-      return launch<128>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                         stream);
+      return launch<128>(out, q, k, v, rows, S, T, Hq, Hkv, window, causal,
+                         softcap, stream);
     case 256:
-      return launch<256>(out, q, k, v, rows, S, Hq, Hkv, window, softcap,
-                         stream);
+      return launch<256>(out, q, k, v, rows, S, T, Hq, Hkv, window, causal,
+                         softcap, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1168,34 +1197,36 @@ int dispatch_f32(int D, void* out, const void* q, const void* k,
 
 extern "C" {
 
-// dtype: 0 for f32 q/k/v/out, 1 for bf16.  bf16 runs
+// q, out: (rows, S, Hq, head_dim); k, v: (rows, T, Hkv, head_dim).  causal:
+// 0 or 1.  dtype: 0 for f32 q/k/v/out, 1 for bf16.  bf16 runs
 // flash_attention_fwd_wgmma, f32 flash_attention_fwd_kernel.  Returns
 // cudaErrorInvalidValue for a dtype code, head_dim or shape the kernels do
 // not take.
 int flash_attention_fwd(void* out, const void* q, const void* k,
-                        const void* v, int rows, int S, int Hq, int Hkv,
-                        int head_dim, int window, float softcap, int dtype,
-                        void* stream) {
-  if (rows <= 0 || rows > 65535 || S <= 0 || Hq <= 0 || Hq > 65535 ||
-      Hkv <= 0 || Hq % Hkv != 0 || window < 0 || !(softcap >= 0.f)) {
+                        const void* v, int rows, int S, int T, int Hq,
+                        int Hkv, int head_dim, int window, int causal,
+                        float softcap, int dtype, void* stream) {
+  if (rows <= 0 || rows > 65535 || S <= 0 || T <= 0 || Hq <= 0 ||
+      Hq > 65535 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
+      (causal != 0 && causal != 1) || !(softcap >= 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    return dispatch_f32(head_dim, out, q, k, v, rows, S, Hq, Hkv, window,
-                        softcap, st);
+    return dispatch_f32(head_dim, out, q, k, v, rows, S, T, Hq, Hkv, window,
+                        causal, softcap, st);
   }
   if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 64:
-      return launch_wgmma<64>(out, q, k, v, rows, S, Hq, Hkv, window,
-                              softcap, st);
+      return launch_wgmma<64>(out, q, k, v, rows, S, T, Hq, Hkv, window,
+                              causal, softcap, st);
     case 128:
-      return launch_wgmma<128>(out, q, k, v, rows, S, Hq, Hkv, window,
-                               softcap, st);
+      return launch_wgmma<128>(out, q, k, v, rows, S, T, Hq, Hkv, window,
+                               causal, softcap, st);
     case 256:
-      return launch_wgmma<256>(out, q, k, v, rows, S, Hq, Hkv, window,
-                               softcap, st);
+      return launch_wgmma<256>(out, q, k, v, rows, S, T, Hq, Hkv, window,
+                               causal, softcap, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

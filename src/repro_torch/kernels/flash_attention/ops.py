@@ -26,8 +26,9 @@ _MODES = ("auto", "kernel", "ref")
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, mode: str = "auto") -> torch.Tensor:
-    """q: (B,S,Hq,hd); k,v: (B,S,Hkv,hd) -> (B,S,Hq,hd) in q's dtype.  The
-    kernel path hands the kernel contiguous q, k and v."""
+    """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) -> (B,S,Hq,hd) in q's dtype; query
+    row i sits at position i (causal with T != S is offset 0, as the TPU
+    kernel's).  The kernel path hands the kernel contiguous q, k and v."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     if mode == "ref" or (mode == "auto" and q.device.type == "cpu"):

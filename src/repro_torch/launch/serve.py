@@ -27,8 +27,8 @@ server is wrapped in a :class:`repro_torch.serving.transport.TransportServer`
 personalization over the socket with either package's ``TransportClient``:
 submit a token batch shaped as the loss expects (``{"tokens": int32[1, L],
 "labels": int32[1, L]}``, L a multiple of the SSM chunk, plus a vlm
-arch's ``visual`` leaf, see ``_user_batch``), poll the head back, fetch it
-again with HEAD.
+arch's ``visual`` or an encdec arch's ``frames`` leaf, see
+``_user_batch``), poll the head back, fetch it again with HEAD.
 ``--flush-ms`` bounds queueing latency, ``--window-ms`` advances the
 aggregation window on a wall clock, ``--max-inflight`` is the backpressure
 bound and ``--serve-seconds`` stops the server (default: until
@@ -63,7 +63,7 @@ from repro_torch.core.types import PersAFLConfig
 from repro_torch.data import synthetic_token_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _MESH = ("the multi-device paths come with ROADMAP.md Queue 1, "
          "multi-device paths "
@@ -79,16 +79,29 @@ def _personalize_len(cfg, n: int) -> int:
 
 def _user_batch(cfg, seed: int, length: int):
     """One user's personalization stream (numpy leaves with batch dim 1:
-    int32 tokens and labels, and for a vlm arch the reference's zero
-    ``visual`` leaf (1, n_visual_tokens, d_model), f32 here, since numpy has
-    no bf16 and ``lm_hidden`` casts it to the activation dtype; the cohort
-    engine stacks them and copies each leaf to the device once).  The
-    reference's encdec ``frames`` leaf belongs to a family that is not
-    ported yet."""
+    int32 tokens and labels, and the reference's zero stub leaves: a vlm
+    arch's ``visual`` (1, n_visual_tokens, d_model), an encdec arch's
+    ``frames`` (1, enc_len, d_model); f32 here, since numpy has no bf16,
+    and the model casts them to the activation dtype; the cohort engine
+    stacks them and copies each leaf to the device once)."""
     batch = synthetic_token_batch(seed, 1, length, cfg.vocab)
     if cfg.n_visual_tokens:
         batch["visual"] = np.zeros((1, cfg.n_visual_tokens, cfg.d_model),
                                    np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = np.zeros((1, cfg.enc_len, cfg.d_model), np.float32)
+    return batch
+
+
+def _init_batch(cfg, tokens):
+    """Cache-init batch: token ids, plus an encdec arch's zero encoder
+    frames (B, enc_len, d_model) in the activation dtype, on the tokens'
+    device."""
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros(
+            (tokens.shape[0], cfg.enc_len, cfg.d_model),
+            dtype=cfg.activation_dtype, device=tokens.device)
     return batch
 
 
@@ -107,8 +120,8 @@ def make_prefill(cfg):
 @torch.no_grad()
 def _decode_shared(cfg, params, prompt, max_len, prompt_len):
     """Batched decode with the shared global params (no personalization)."""
-    cache = api.init_cache(cfg, params, {"tokens": prompt[:, :1]}, max_len,
-                           cfg.activation_dtype)
+    cache = api.init_cache(cfg, params, _init_batch(cfg, prompt[:, :1]),
+                           max_len, cfg.activation_dtype)
     cache = make_prefill(cfg)(params, cache, prompt)
     tok = prompt[:, -1:]
     generated = []
@@ -130,17 +143,29 @@ def _decode_personalized(cfg, heads, prompt, max_len, prompt_len,
     tree whose personal leaves carry the user axis and whose backbone leaves
     do not, and ``in_dims`` 0 on personal leaves and ``None`` on the backbone
     vmaps it without replicating the backbone per user.
+
+    The cache is made under the same ``vmap``, as the reference makes it:
+    an encdec arch's cache holds the encoder's cross K/V, which depend on
+    the params, so a user whose head holds encoder leaves runs the encoder
+    on their own params (through ``FlashAttention``'s vmap rule), while a
+    backbone the users share runs it once.  ``torch.func.vmap`` returns
+    tensors only, so the init returns the cache's leaves and the cache is
+    rebuilt around them (the hybrid's ``emb0: None`` holds no leaf).
     """
     if spec is not None:
         heads = tree_map(lambda x: x, merge_subset(params, heads))
         p_axes = tree_map(lambda m: 0 if m else None, spec.mask(params))
     else:
         p_axes = 0
-    U = prompt.shape[0]
     prompt_u = prompt[:, None, :]                      # [U, 1, L]
-    one = api.init_cache(cfg, params, {"tokens": prompt[:1, :1]}, max_len,
-                         cfg.activation_dtype)
-    cache = tree_map(lambda x: x[None].repeat((U,) + (1,) * x.dim()), one)
+    made = {}
+
+    def init_one(p, t):
+        made["cache"] = api.init_cache(cfg, p, _init_batch(cfg, t), max_len,
+                                       cfg.activation_dtype)
+        return tree_leaves(made["cache"])
+    leaves = vmap(init_one, in_dims=(p_axes, 0))(heads, prompt_u[:, :, :1])
+    cache = tree_unflatten(made.pop("cache"), leaves)
     # the user axis on every cache tensor; an empty entry (the hybrid's
     # ``emb0: None``) is passed through, in and out.  vmap pairs axes with
     # dict entries in insertion order, so the caches it returns are rebuilt

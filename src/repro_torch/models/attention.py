@@ -4,14 +4,17 @@ logit softcap and QKV bias, and DeepSeek-V3's Multi-head Latent Attention
 
 Three execution paths:
 
-  * full-sequence causal self-attention (train / prefill) goes through
-    :class:`FlashAttention`, whose forward is
+  * full-sequence attention (train / prefill) without a per-layer
+    ``local_flag`` goes through :class:`FlashAttention`, whose forward is
     ``kernels.flash_attention.ops.flash_attention`` -- the hand-written CUDA
     kernel ``flash_attention_fwd`` for CUDA tensors, the plain
-    ``attention_ref`` for CPU tensors;
-  * any other mask (non-causal, cross attention, a per-layer
-    ``local_flag``) and single-token decode against a KV cache run the
-    plain :func:`sdpa`, as the reference computes them outside any kernel;
+    ``attention_ref`` for CPU tensors: causal self-attention, with or
+    without a window, bidirectional self-attention (whisper's encoder) and
+    cross-attention to keys of another length (whisper's decoder against
+    the encoder's frames);
+  * a per-layer ``local_flag`` (a traced flag in the reference) and
+    single-token decode against a KV cache (self or cross) run the plain
+    :func:`sdpa`, as the reference computes them outside any kernel;
   * MLA runs in plain PyTorch, as in the reference: prefill materializes
     per-head k and v (its q.k head is not its v head, and the kernel takes
     equal head dims), decode attends in the latent space (absorbed form).
@@ -22,8 +25,7 @@ while the port runs the kernel when the activations lie on the card.  On
 the CPU both packages compute the same plain attention, so the parity tests
 compare like with like.
 
-Softmax is always computed in f32.  ``cross_attn_decode`` raises
-``NotImplementedError`` naming the slice that brings it.
+Softmax is always computed in f32.
 """
 from __future__ import annotations
 
@@ -117,17 +119,19 @@ def causal_mask(S: int, T: int, q_offset, window: int = 0, local_flag=None,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal self-attention through ``kernels.flash_attention.ops`` with the
-    gradient of its plain version.
+    """Attention through ``kernels.flash_attention.ops`` with the gradient
+    of its plain version: q (B,S,Hq,hd) against k, v (B,T,Hkv,hd), causal
+    (offset 0) or not, with a window and a softcap.
 
     * forward: ``fa_ops.flash_attention(..., mode="auto")`` -- the CUDA
       kernel ``flash_attention_fwd`` for CUDA tensors, ``attention_ref`` for
       CPU tensors;
-    * backward: the vjp of ``attention_ref`` on the saved q, k, v, so that
-      the CPU forward and the gradient are one function; it computes what
-      the reference differentiates (its ``sdpa`` with ``causal_mask``; it
-      has no backward kernel).  The logits are recomputed in plain PyTorch:
-      that is the price of having no backward kernel (ROADMAP follow-up);
+    * backward: the vjp of ``attention_ref`` with the same ``causal`` on the
+      saved q, k, v, so that the CPU forward and the gradient are one
+      function; it computes what the reference differentiates (its ``sdpa``
+      with ``causal_mask``, or with no mask; it has no backward kernel).
+      The logits are recomputed in plain PyTorch: that is the price of
+      having no backward kernel (ROADMAP follow-up);
     * vmap: folds the vmapped dim into the batch dim (an unbatched operand
       is expanded over it) and calls the Function once, so
       ``vmap(grad(loss))`` over a cohort launches the kernel once per
@@ -140,29 +144,29 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(q, k, v, window, cap):
-        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
+    def forward(q, k, v, causal, window, cap):
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       softcap=cap, mode="auto")
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, window, cap = inputs
+        q, k, v, causal, window, cap = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.cap = window, cap
+        ctx.causal, ctx.window, ctx.cap = causal, window, cap
 
     @staticmethod
     def backward(ctx, g):
-        window, cap = ctx.window, ctx.cap
+        causal, window, cap = ctx.causal, ctx.window, ctx.cap
 
         def plain(q, k, v):
-            return attention_ref(q, k, v, causal=True, window=window,
+            return attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=cap)
 
         _, vjp_fn = torch.func.vjp(plain, *ctx.saved_tensors)
-        return (*vjp_fn(g), None, None)
+        return (*vjp_fn(g), None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, window, cap):
+    def vmap(info, in_dims, q, k, v, causal, window, cap):
         V = info.batch_size
 
         def fold(t, d):
@@ -172,29 +176,35 @@ class FlashAttention(torch.autograd.Function):
             return t.reshape(V * t.shape[1], *t.shape[2:])
 
         out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
-                                   fold(v, in_dims[2]), window, cap)
+                                   fold(v, in_dims[2]), causal, window, cap)
         return out.reshape(V, out.shape[0] // V, *out.shape[1:]), 0
 
 
-def flash_attention(q, k, v, *, window: int = 0, cap: float = 0.0):
-    """The differentiable, vmappable causal attention of
-    :class:`FlashAttention`."""
-    return FlashAttention.apply(q, k, v, window, cap)
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cap: float = 0.0):
+    """The differentiable, vmappable attention of :class:`FlashAttention`;
+    k, v may be of another length than q."""
+    return FlashAttention.apply(q, k, v, causal, window, cap)
 
 
 def attn_forward(cfg: ArchConfig, p, x, *, positions, window: int = 0,
                  local_flag=None, kv_x=None, kv_positions=None,
                  causal: bool = True):
-    """Full-sequence attention (train / prefill / encoder / cross).  Causal
-    self-attention without a ``local_flag`` runs :class:`FlashAttention`;
-    any other mask the plain :func:`sdpa`."""
+    """Full-sequence attention (train / prefill / encoder / cross).
+    Without a ``local_flag`` it runs :class:`FlashAttention`: causal (offset
+    0, the window applied) or, with ``causal=False``, unmasked, as the
+    reference's ``sdpa`` with no mask; self-attention or cross-attention to
+    ``kv_x``.  A ``local_flag`` runs the plain :func:`sdpa`."""
     q, k, v = _project_qkv(cfg, p, x, kv_x)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         kpos = kv_positions if kv_positions is not None else positions
         k = apply_rope(k, kpos, cfg.rope_theta)
-    if causal and kv_x is None and local_flag is None:
-        out = flash_attention(q, k, v, window=window, cap=cfg.attn_softcap)
+    if local_flag is None:
+        # the reference's mask is None without causal: no window either
+        out = flash_attention(q, k, v, causal=causal,
+                              window=window if causal else 0,
+                              cap=cfg.attn_softcap)
     else:
         mask = causal_mask(q.shape[1], k.shape[1], 0, window, local_flag,
                            device=q.device) if causal else None
@@ -248,12 +258,19 @@ def attn_decode(cfg: ArchConfig, p, x, k_cache, v_cache, pos, *,
     return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype), k_cache, v_cache
 
 
-_ENCDEC = ("cross-attention decode comes with the encdec slice "
-           "(models/encdec.py), ROADMAP.md Queue 1, LLM side")
-
-
 def cross_attn_decode(cfg: ArchConfig, p, x, enc_k, enc_v):
-    raise NotImplementedError(_ENCDEC)
+    """Decode-time cross-attention against the precomputed encoder K/V:
+    x (B,1,d); enc_k, enc_v (B,T,Hkv,hd) -> (B,1,d).  The plain
+    :func:`sdpa` with no mask, as ``attn_decode``'s single token."""
+    dt = x.dtype
+    hd = cfg.resolved_head_dim
+    B = x.shape[0]
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.n_heads, hd)
+    if "bq" in p:
+        q = q + p["bq"].to(dt).reshape(1, 1, cfg.n_heads, hd)
+    out = sdpa(q, enc_k.to(dt), enc_v.to(dt), mask=None,
+               cap=cfg.attn_softcap)
+    return out.reshape(B, 1, -1) @ p["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------

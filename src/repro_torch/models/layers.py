@@ -1,9 +1,9 @@
 """Model building blocks of ``src/repro/models/layers.py``: the fan-in
 truncated-normal init, the cross-entropy loss, what the SSM language model
 needs (RMSNorm, logit soft-capping, the token embedding and the
-unembedding), and what the hybrid's shared block needs (rotary embeddings,
-the SwiGLU MLP).  The GELU MLP and the sinusoidal positions come with the
-encdec family.
+unembedding), what the hybrid's shared block needs (rotary embeddings, the
+SwiGLU MLP), and what the encdec family needs (the 2-matrix GELU MLP and
+the sinusoidal positions).
 
 Params are nested dicts of tensors, as in the reference.  Stacked
 (per-layer) params carry a leading ``n_layers`` axis."""
@@ -94,6 +94,57 @@ def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
     return h @ p["wd"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# GELU MLP and sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+def init_mlp_gelu(generator: torch.Generator, d_model: int, d_ff: int):
+    """2-matrix GELU MLP (whisper-style), the reference's param count."""
+    return {"w1": dense_init(generator, (d_model, d_ff)),
+            "w2": dense_init(generator, (d_ff, d_model))}
+
+
+def mlp_gelu_forward(p, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, not the exact
+    erf form that ``F.gelu`` defaults to."""
+    dt = x.dtype
+    h = torch.nn.functional.gelu(x @ p["w1"].to(dt), approximate="tanh")
+    return h @ p["w2"].to(dt)
+
+
+_SIN_TABLES: dict = {}
+
+
+def _sinusoidal_table(rows: int, d: int, device) -> torch.Tensor:
+    """The (>= rows, d) table of positions 0, 1, ... on ``device``, grown
+    (to at least twice its length) only when a call needs more rows."""
+    table = _SIN_TABLES.get((d, device))
+    if table is None or table.shape[0] < rows:
+        n = max(rows, 2048 if table is None else 2 * table.shape[0])
+        pos = torch.arange(n, dtype=torch.float32)[:, None]
+        div = 1.0 / (10_000.0 ** (torch.arange(0, d, 2, dtype=torch.float32)
+                                  / d))
+        ang = pos * div[None, :]
+        table = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        _SIN_TABLES[(d, device)] = table = table.to(device)
+    return table
+
+
+def sinusoidal_positions(n: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """(n, d) f32 sinusoidal position embeddings (whisper enc/dec) of
+    positions offset .. offset + n - 1, a view of one table per (d,
+    device).  The table is computed on the host in f32, as the reference
+    computes it, and copied to ``device`` once: a card and the CPU then add
+    the same bits (the angles reach 1,500 radians, where an ulp of the
+    device's ``pow`` would move them by 1e-4), and a decode step slices it
+    on the device with no copy."""
+    offset = int(offset)
+    table = _sinusoidal_table(offset + int(n), int(d),
+                              torch.device(device or "cpu"))
+    return table[offset:offset + int(n)]
 
 
 def init_embed(generator: torch.Generator, vocab: int, d_model: int):

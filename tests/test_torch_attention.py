@@ -96,8 +96,25 @@ def test_init_shapes_match_reference(smoke):
                               torch.from_numpy(x),
                               positions=torch.from_numpy(pos))
     _holds(got, want)
-    with pytest.raises(NotImplementedError, match="encdec slice"):
-        attn.cross_attn_decode(cfg, own["attn"], None, None, None)
+    # cross-attention decode from the reference's init (its d_in is d) of
+    # one token against 40 encoder frames, against the reference's, and
+    # not against the first 20 frames alone
+    np_x = jax.tree.map(np.asarray, jattn.init_attn(
+        jax.random.PRNGKey(2), smoke["jcfg"]))
+    rs = np.random.RandomState(3)
+    hd = cfg.resolved_head_dim
+    xt = rs.randn(B, 1, cfg.d_model).astype(np.float32)
+    ek, ev = (rs.randn(B, 40, cfg.n_kv_heads, hd).astype(np.float32)
+              for _ in range(2))
+    got = attn.cross_attn_decode(cfg, params_from_jax(np_x, device="cpu"),
+                                 *map(torch.from_numpy, (xt, ek, ev)))
+    want = jattn.cross_attn_decode(smoke["jcfg"], np_x,
+                                   *map(jnp.asarray, (xt, ek, ev)))
+    short = jattn.cross_attn_decode(smoke["jcfg"], np_x, jnp.asarray(xt),
+                                    jnp.asarray(ek[:, :20]),
+                                    jnp.asarray(ev[:, :20]))
+    assert tuple(got.shape) == (B, 1, cfg.d_model)
+    _holds(got, want, np.asarray(short))
 
 
 def test_rope_matches_reference():

@@ -21,6 +21,15 @@ without the window does.  Gradients within 1e-5.
 (key tiles of ``kernel.key_tile``, f32 online softmax, bf16 weights into
 P·V for bf16 inputs), is held to the same tolerances against the same two,
 at every case and at TILE_CASES, whose windows cross several key tiles.
+
+The other branch of the TPU kernel (XCASES): ``causal=False`` and keys of
+another length T than the queries' S, the query row i at position i
+(causal with T != S is offset 0, not the reference's ``q_offset=T-S``
+convention of ``attention_ref``).  Each check also fails the causal answer
+(for a non-causal case) or the non-causal one (for a causal case), and
+where T > S the last-S-rows answer.  At T = 200, which no key tile of 64
+or 128 divides, the tile walk must also tell its answer from the one that
+gives the tile's keys past T (zeros, as TMA fills them) a score of 0.
 The CUDA kernels are held against both plain versions on the card by
 ``chip_smoke.py``.
 """
@@ -58,6 +67,19 @@ TILE_CASES = [
     (1, 384, 8, 2, 128, 300, 5.0),
     (1, 384, 8, 4, 256, 200, 5.0),
 ]
+# (B, S, T, Hq, Hkv, hd, causal): bidirectional self-attention (whisper's
+# encoder), cross-attention to a longer and to a shorter key sequence
+# (whisper's decoder against its frames), a partial tile (8 x 16), each also
+# causal where T != S
+XCASES = [
+    (1, 256, 256, 4, 2, 64, False),
+    (2, 128, 256, 4, 4, 32, False),
+    (2, 128, 256, 4, 4, 32, True),
+    (1, 256, 128, 4, 2, 64, False),
+    (1, 256, 128, 4, 2, 64, True),
+    (1, 8, 16, 8, 1, 64, False),
+    (1, 8, 16, 8, 1, 64, True),
+]
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -71,11 +93,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(B, S, Hq, Hkv, hd, seed=0, q_scale=2.0):
+def _inputs(B, S, Hq, Hkv, hd, seed=0, q_scale=2.0, T=None):
+    """q (B,S,Hq,hd), k and v (B,T,Hkv,hd) (T = S by default)."""
+    T = S if T is None else T
     rng = np.random.RandomState(seed)
     q = q_scale * rng.randn(B, S, Hq, hd)
-    k = rng.randn(B, S, Hkv, hd)
-    v = rng.randn(B, S, Hkv, hd) + (np.arange(S) / S)[None, :, None, None]
+    k = rng.randn(B, T, Hkv, hd)
+    v = rng.randn(B, T, Hkv, hd) + (np.arange(T) / T)[None, :, None, None]
     return [a.astype(np.float32) for a in (q, k, v)]
 
 
@@ -167,6 +191,68 @@ def test_attention_ref_without_causal_mask():
     _holds(got, want, TOL["f32"], causal)
 
 
+def _xwrong(fn, tins, causal, S, T, **kw):
+    """The wrong answers a cross-length case must fail: the other mask and,
+    where T > S, the last S rows of a T-row sequence."""
+    wrong = [fn(*tins, causal=not causal, **kw).float()]
+    if causal and T > S:
+        wrong.append(fn(*tins, causal=True, q_offset=T - S, **kw).float())
+    return tuple(wrong)
+
+
+@pytest.mark.parametrize("case", XCASES)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_non_causal_and_cross_length_match_jax_ref_and_pallas(case, dname):
+    """The branch the encdec family runs: both plain versions against the
+    JAX ``attention_ref`` and the interpret-mode Pallas kernel, k and v of
+    length T."""
+    B, S, T, Hq, Hkv, hd, causal = case
+    jdt, tdt = DTYPES[dname]
+    ins = _inputs(B, S, Hq, Hkv, hd, seed=7, T=T,
+                  q_scale=2.0 if dname == "f32" else 1.0)
+    jins = [jnp.asarray(a, jdt) for a in ins]
+    tins = [torch.from_numpy(a).to(tdt) for a in ins]
+    K.reset_launches()
+    got = ops.flash_attention(*tins, causal=causal)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, Hq, hd)
+    assert K.LAUNCHES["flash_attention_fwd"] == 0   # CPU: the plain version
+    tiles = attention_tiles_ref(*tins, causal=causal,
+                                block_k=K.key_tile(tdt, hd))
+    jwant = j_ref(*jins, causal=causal)
+    pallas = j_fwd(*jins, causal=causal, block_q=64, block_k=64,
+                   interpret=True)
+    tol = TOL[dname]
+    for out in (got, tiles):
+        wrong = _xwrong(attention_ref, tins, causal, S, T)
+        _holds(out.float(), jwant, tol, *wrong)
+        _holds(out.float(), pallas, tol, *wrong)
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("S,causal", [(200, False), (96, False),
+                                      (256, True)])
+def test_attention_tiles_ref_masks_the_tail_past_t(S, causal, block_k,
+                                                   dname):
+    """T = 200 keys in tiles of 64 or 128: the tile walk against
+    ``attention_ref``, and not the answer that scores the last tile's keys
+    past T (zeros, as the wgmma kernel's TMA loads give them) as 0."""
+    T, Hq, Hkv, hd = 200, 4, 2, 64
+    _, tdt = DTYPES[dname]
+    ins = _inputs(1, S, Hq, Hkv, hd, seed=8, T=T,
+                  q_scale=2.0 if dname == "f32" else 1.0)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in ins)
+    got = attention_tiles_ref(q, k, v, causal=causal, block_k=block_k)
+    want = attention_ref(q, k, v, causal=causal)
+    pad = -T % block_k
+    kz, vz = (torch.cat([t, t.new_zeros(1, pad, Hkv, hd)], dim=1)
+              for t in (k, v))
+    unmasked_tail = attention_ref(q, kz, vz, causal=causal)
+    assert not torch.equal(unmasked_tail, want)
+    _holds(got.float(), want.float(), TOL[dname], unmasked_tail.float(),
+           *_xwrong(attention_ref, (q, k, v), causal, S, T))
+
+
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (16, 5.0)])
 def test_plain_versions_take_the_last_rows_by_q_offset(window, cap):
     """``q_offset`` puts the queries at the keys' last positions: the last
@@ -197,8 +283,10 @@ def test_ops_modes_and_kernel_wrapper_refuse_cpu_tensors():
         ops.flash_attention(q, k, v, mode="pallas")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         K.flash_attention_fwd(q, k, v)
-    with pytest.raises(ValueError, match="causal attention only"):
-        ops.flash_attention(q, k, v, causal=False, mode="kernel")
+    # the non-causal, cross-length branch on a CPU tensor: refused too
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.flash_attention(q, k[:, :32], v[:, :32], causal=False,
+                            mode="kernel")
     assert K.LAUNCHES["flash_attention_fwd"] == 0
 
 
@@ -219,6 +307,30 @@ def test_flash_attention_gradient_matches_jax_vjp_of_sdpa(window, cap):
     out = flash_attention(*tins, window=window, cap=cap)
     grads = torch.autograd.grad(out, tins, torch.from_numpy(g))
     _holds(out.detach(), jout, 1e-5)
+    for a, b in zip(grads, jgrads):
+        _holds(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("S,T,causal", [(40, 40, False), (24, 56, False),
+                                        (24, 56, True)])
+def test_flash_attention_gradient_non_causal_and_cross(S, T, causal):
+    """The Function's backward on the encdec branch: against ``jax.vjp`` of
+    the reference ``sdpa`` with no mask (``causal=False``) or its
+    ``causal_mask(S, T, 0)``, f32, GQA, k and v of length T."""
+    B, Hq, Hkv, hd = 2, 4, 2, 32
+    ins = _inputs(B, S, Hq, Hkv, hd, seed=9, T=T)
+    g = np.random.RandomState(10).randn(B, S, Hq, hd).astype(np.float32)
+    mask = jattn.causal_mask(S, T, 0) if causal else None
+
+    def jfn(q, k, v):
+        return jattn.sdpa(q, k, v, mask=mask)
+    jout, jvjp = jax.vjp(jfn, *map(jnp.asarray, ins))
+    jgrads = jvjp(jnp.asarray(g))
+    tins = [torch.from_numpy(a).requires_grad_() for a in ins]
+    out = flash_attention(*tins, causal=causal)
+    grads = torch.autograd.grad(out, tins, torch.from_numpy(g))
+    other = flash_attention(*(t.detach() for t in tins), causal=not causal)
+    _holds(out.detach(), jout, 1e-5, other)
     for a, b in zip(grads, jgrads):
         _holds(a, b, 1e-5)
 
@@ -252,6 +364,31 @@ def test_flash_attention_vmap_grad_matches_per_user_loop():
     vs = torch.stack([v[None] - 0.2 * u for u in range(U)])
     g_all = vmap(grad(loss, argnums=(0, 1, 2)))(qs, ks, vs)
     for u in range(U):
+        g_u = grad(loss, argnums=(0, 1, 2))(qs[u], ks[u], vs[u])
+        for a, b in zip(g_all, g_u):
+            _holds(a[u], b, 1e-6)
+
+
+def test_flash_attention_vmap_rule_takes_cross_length_keys():
+    """The vmap rule folds users into the batch with k and v of another
+    length than q (the cohort's encoder frames against its decoder
+    tokens), non-causal: ``vmap(grad(...))`` equals the per-user loop."""
+    U, S, T, H, hd = 3, 12, 20, 2, 32
+    rng = np.random.RandomState(11)
+    qs = torch.from_numpy(rng.randn(U, 1, S, H, hd).astype(np.float32))
+    ks = torch.from_numpy(rng.randn(U, 1, T, H, hd).astype(np.float32))
+    vs = torch.from_numpy(rng.randn(U, 1, T, H, hd).astype(np.float32))
+    w = torch.from_numpy(rng.randn(1, S, H, hd).astype(np.float32))
+
+    def loss(q, k, v):
+        return (flash_attention(q, k, v, causal=False) * w).sum()
+
+    g_all = vmap(grad(loss, argnums=(0, 1, 2)))(qs, ks, vs)
+    fwd = vmap(lambda q, k, v: flash_attention(q, k, v, causal=False))(
+        qs, ks, vs)
+    for u in range(U):
+        _holds(fwd[u], flash_attention(qs[u], ks[u], vs[u], causal=False),
+               1e-6, flash_attention(qs[u], ks[u], vs[u]))
         g_u = grad(loss, argnums=(0, 1, 2))(qs[u], ks[u], vs[u])
         for a, b in zip(g_all, g_u):
             _holds(a[u], b, 1e-6)

@@ -208,9 +208,10 @@ def test_every_layer_runs_flash_attention(smoke, monkeypatch):
     windows = []
     flash = attention.flash_attention
 
-    def counting(q, k, v, *, window=0, cap=0.0):
+    def counting(q, k, v, *, causal=True, window=0, cap=0.0):
+        assert causal, "a decoder layer ran non-causal attention"
         windows.append(window)
-        return flash(q, k, v, window=window, cap=cap)
+        return flash(q, k, v, causal=causal, window=window, cap=cap)
 
     def refuse(*a, **kw):
         raise AssertionError("the full-sequence path ran the plain sdpa")

@@ -287,9 +287,10 @@ def test_attention_path_by_arch(smoke, monkeypatch):
     calls = []
     flash = lm.attn.flash_attention
 
-    def counting(q, k, v, *, window=0, cap=0.0):
+    def counting(q, k, v, *, causal=True, window=0, cap=0.0):
+        assert causal, "a decoder layer ran non-causal attention"
         calls.append(window)
-        return flash(q, k, v, window=window, cap=cap)
+        return flash(q, k, v, causal=causal, window=window, cap=cap)
     monkeypatch.setattr(lm.attn, "flash_attention", counting)
     api.prefill_logits(cfg, smoke["params"], smoke["tbatch"])
     assert calls == ([] if cfg.mla is not None else [0, 0])

@@ -97,24 +97,24 @@ def _port_config(jcfg):
 
 
 def test_config_registry():
+    """Both packages list the same archs, every config the reference's
+    (whisper-large-v3's, the encdec arch, among them)."""
     assert configs.list_archs() == [
         "codeqwen1.5-7b", "deepseek-v3-671b", "gemma2-2b",
         "granite-moe-1b-a400m", "internvl2-76b", "mamba2-130m",
-        "minitron-8b", "qwen1.5-110b", "zamba2-1.2b"]
+        "minitron-8b", "qwen1.5-110b", "whisper-large-v3", "zamba2-1.2b"]
+    assert configs.list_archs() == sorted(jconfigs.list_archs())
     for arch in configs.list_archs():
         cfg = configs.get_config(arch)
         jcfg = jconfigs.get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.activation_dtype == torch.bfloat16
         assert base.reduce_for_smoke(cfg).activation_dtype == torch.float32
-    # the other reference arch (encdec) names the slice that brings it
-    others = [a for a in jconfigs.list_archs()
-              if a not in configs.list_archs()]
-    assert others == ["whisper-large-v3"]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, LLM side: the encdec "
-                             "slice"):
-        configs.get_config("whisper-large-v3")
+    whisper = configs.get_config("whisper-large-v3")
+    assert dataclasses.asdict(whisper) == dataclasses.asdict(
+        jconfigs.get_config("whisper-large-v3"))
+    assert whisper.is_encdec and (whisper.enc_layers, whisper.enc_len) == \
+        (32, 1500)
     with pytest.raises(KeyError):
         configs.get_config("mamba2-13om")
     assert [dataclasses.asdict(s) for s in base.INPUT_SHAPES] == \
@@ -273,8 +273,9 @@ def test_decode_steps_match_reference(smoke):
 def test_hybrid_and_other_families_raise():
     """The hybrid family is ported (it builds the shared block), and so are
     the dense, vlm and moe families (``models/lm.py``; a moe config's loss
-    equals the reference's); the audio family still raises, naming its
-    slice."""
+    equals the reference's) and the audio family (``models/encdec.py``: an
+    encdec config builds the reference's tree, and its loss from the
+    reference's init equals the reference's)."""
     cfg = base.reduce_for_smoke(configs.get_config("mamba2-130m"))
     hybrid = dataclasses.replace(cfg, family="hybrid", attn_every=2,
                                  n_heads=4, n_kv_heads=4, head_dim=32,
@@ -305,7 +306,21 @@ def test_hybrid_and_other_families_raise():
     got = api.loss_fn(moe, params_from_jax(np_params, device="cpu"),
                       {k: torch.from_numpy(v) for k, v in batch.items()})
     _holds(got, want, atol=0.0, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="encdec slice"):
-        api.init_params(dataclasses.replace(cfg, family="audio",
-                                            is_encdec=True),
-                        torch.Generator(), "cpu")
+    audio = dataclasses.replace(dense, family="audio", is_encdec=True,
+                                enc_layers=1, enc_len=12)
+    params = api.init_params(audio, torch.Generator().manual_seed(0), "cpu")
+    assert sorted(params) == ["dec_layers", "embed", "enc_layers",
+                              "enc_norm", "final_norm"]
+    assert sorted(params["dec_layers"]) == ["cross", "ln1", "ln2", "ln_x",
+                                            "mlp", "self"]
+    jaudio = jbase.ArchConfig(**dataclasses.asdict(audio))
+    np_params = jax.tree.map(np.asarray, jax.jit(
+        lambda k: japi.init_params(jaudio, k))(jax.random.PRNGKey(0)))
+    assert leaf_paths(params) == leaf_paths(
+        params_from_jax(np_params, device="cpu"))
+    batch["frames"] = np.random.RandomState(4).randn(
+        2, audio.enc_len, audio.d_model).astype(np.float32)
+    want = jax.jit(lambda p: japi.loss_fn(jaudio, p, batch))(np_params)
+    got = api.loss_fn(audio, params_from_jax(np_params, device="cpu"),
+                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    _holds(got, want, atol=0.0, rtol=1e-5)

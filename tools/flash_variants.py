@@ -14,8 +14,12 @@ launches, so that CUDA events time the kernels back to back; the median of
 9 runs is kept.  Every build's output is compared with the first build's
 (``max_diff``).  A source may be any revision of the file: an older one
 from git (``git show REV:src/repro_torch/csrc/flash_attention.cu``) or a
-copy with one design choice undone.  Prints the card (``nvidia-smi``) and a
-line per case, and writes every time and difference to OUT.json.
+copy with one design choice undone.  Revisions whose C entry point takes
+the keys' length T and ``causal`` (the current one) are called with T = S,
+causal; older ones with their own arguments (S, no ``causal``), told apart
+by the entry point's parameter list in the source.  Prints the card
+(``nvidia-smi``) and a line per case, and writes every time and difference
+to OUT.json.
 """
 from __future__ import annotations
 
@@ -58,11 +62,20 @@ def build(sources: dict) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
         lib = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so"))
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32,
-                                            i32, i32, ctypes.c_float, i32, p]
+        cross = takes_t(Path(sources[name]).read_text())
+        lib.flash_attention_fwd.argtypes = (
+            [p, p, p, p] + [i32] * (8 if cross else 6)
+            + [ctypes.c_float, i32, p])
         lib.flash_attention_fwd.restype = i32
-        libs[name] = lib
+        libs[name] = (lib, cross)
     return libs
+
+
+def takes_t(source: str) -> bool:
+    """Whether the source's C entry point takes T and ``causal``."""
+    start = source.index("int flash_attention_fwd(",
+                         source.index('extern "C"'))
+    return "int causal" in source[start:source.index("{", start)]
 
 
 def time_case(torch, libs: dict, case) -> dict:
@@ -74,9 +87,12 @@ def time_case(torch, libs: dict, case) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(name):
-        err = libs[name].flash_attention_fwd(
+        lib, cross = libs[name]
+        lens = (S, S) if cross else (S,)
+        flags = (window, 1) if cross else (window,)
+        err = lib.flash_attention_fwd(
             outs[name].data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            B, S, Hq, Hkv, hd, window, cap, 1, stream)
+            B, *lens, Hq, Hkv, hd, *flags, cap, 1, stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err} at {case}")
 

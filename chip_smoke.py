@@ -286,6 +286,33 @@ Phases; any failure exits non-zero and prints no result line:
      steps on the card against its teacher-forced logits within
      DECODE_TOL.
 
+ 14. training (``launch/train.py``) -- (T1) ``launch.train.main --preset
+     paper-mnist`` at its 200 rounds and ``--preset paper-cifar`` cut to
+     20 (TRAIN_PRESETS), Option C at the driver's defaults (30 clients, Q =
+     10, K = 10, batch 16): s/round, the accuracy series, staleness, the
+     active ratio, ``apply_scaled`` launched once per immediate apply and no
+     stacked apply, the checkpoint read back by the port's
+     ``load_server_state`` equal to the run's state bit for bit, and the
+     busy share of a run of TRAIN_PROFILE_ROUNDS rounds.  (T2)
+     ``launch.train.main --arch`` for mamba2-130m and granite-moe-1b-a400m
+     at published width, (8, 512), Option C with Q and K cut to TRAIN_CUT
+     (2 and 2), TRAIN_ROUNDS rounds: s/round, losses, peak device memory,
+     ``ssd_fwd`` / ``flash_attention_fwd`` launched 24 times per forward
+     evaluation (Q·(K+1) gradient evaluations and the round's loss) and
+     ``apply_scaled`` once a round, model TFLOP/s by the reference's count
+     (6 · active params · tokens per gradient evaluation,
+     ``src/repro/launch/roofline.py:69-82``) against the bf16 peak; one
+     more round under the profiler (busy share, device time by kernel
+     class) and one gradient evaluation with the device time of the plain
+     attention and SSD backward passes (their autograd nodes) named.  (T3)
+     one ``make_train_step`` round of each at 2 layers, published widths,
+     f32, Option C, Q = 2, K = 2, (2, 128), card against CPU: new params
+     within PARAM_ATOL, ``delta_norm`` within TRAIN_NORM_RTOL, the launches
+     planned.  The kernel rows gain the training shapes (granite's
+     attention and mamba2's scan at (8, 512), bf16), and ``apply_scaled``,
+     ``ssd_fwd`` and ``flash_attention_fwd`` a ``launches_train`` count of
+     (T1)-(T3).
+
 Each group of phases prints its seconds (``phase <label>: <s> s``).
 
 It prints the card's name and power limit first, one ``{"kernels": [...]}``
@@ -1156,6 +1183,9 @@ SSD_ZAMBA_CASES = ((4, 128), (8, 4096))
 # half of each 128-token tile
 SSD_GROUP_CASES = ((2, 1024, dict(SSD_DIMS, G=2), " G=2"),
                    (2, 1024, dict(SSD_DIMS, chunk=64), " chunk=64"))
+# (T2)'s training shape: mamba2-130m's scan at the driver's (8, 512), bf16,
+# its one (H,) a_log
+SSD_TRAIN_CASES = ((8, 512),)
 
 
 def ssd_inputs(torch, g, B, S, dtype, per_row=False, dims=SSD_DIMS):
@@ -1210,6 +1240,8 @@ def ssd_kernel_phase(torch):
               for B, S in SSD_ZAMBA_CASES]
     cases += [(B, S, "bf16", False, dims, tag)
               for B, S, dims, tag in SSD_GROUP_CASES]
+    cases += [(B, S, "bf16", False, SSD_DIMS, " mamba2-130m (T2)")
+              for B, S in SSD_TRAIN_CASES]
     rows = []
     for B, S, dname, per_row, dims, tag in cases:
         ins = ssd_inputs(torch, g, B, S, dtypes[dname], per_row, dims)
@@ -1358,6 +1390,8 @@ FLASH_CASES = (
     # (u)'s cohort shape: granite-moe's attention on the 4 users' 128-token
     # streams
     (4, 128, 16, 8, 64, "bf16", 0, 0.0),
+    # (T2)'s training shape: granite-moe's attention at the driver's (8, 512)
+    (8, 512, 16, 8, 64, "bf16", 0, 0.0),
 )
 FLASH_MAIN_SHAPE = "B=4 S=128 Hq=32 Hkv=32 hd=64 bf16 window=4096"
 # past this length the plain version's logits do not fit: the case is
@@ -4232,6 +4266,319 @@ def listen_phase(torch, device="cuda", smoke=False):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# phases (T1)-(T3): the training driver, launch/train.py
+# ---------------------------------------------------------------------------
+
+# (T1): launch/train.py --preset at its defaults (Option C, 30 clients, Q 10,
+# K 10, batch 16); (name, rounds, --eval-every).  paper-cifar is cut from
+# 200 rounds to 20, evaluated every 10, for the 1200 s budget: at 200 rounds
+# the two presets took 67.3 + 81.0 s, and their 20-round profiles 11.4 +
+# 15.4 s (NVIDIA H100 80GB HBM3 at 700 W).  The device's busy share is read
+# from a run of its own of TRAIN_PROFILE_ROUNDS rounds, so that the
+# profiler's cost stays out of s/round
+TRAIN_PRESETS = (("paper-mnist", 200, 50), ("paper-cifar", 20, 10))
+TRAIN_PROFILE_ROUNDS = 5
+# (T2): launch/train.py --arch at published width, (B, S) = (8, 512),
+# Option C, TRAIN_ROUNDS rounds each at Q and K cut to TRAIN_CUT: at the
+# driver's defaults (Q 10, K 10, 110 gradient evaluations a round) a round
+# took 27.6-37.2 s (mamba2-130m, host-bound) and 41.5-42.8 s (granite) on
+# an NVIDIA H100 80GB HBM3 at 700 W (tools/train_round.py measures the
+# defaults)
+TRAIN_ARCHS = ("mamba2-130m", "granite-moe-1b-a400m")
+TRAIN_ROUNDS = 2
+TRAIN_CUT = ("--q", "2", "--inner-steps", "2")
+TRAIN_TOKENS = 8 * 512
+H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, data sheet
+# (T3): make_train_step at TRAIN_PARITY's cut, card against CPU, f32; the
+# new params within PARAM_ATOL and delta_norm within TRAIN_NORM_RTOL (f32
+# norms of the same deltas summed in other orders)
+TRAIN_PARITY = dict(n_layers=2, shape=(2, 128), q_local=2, inner_steps=2)
+TRAIN_NORM_RTOL = 1e-5
+# the autograd nodes of the port's two kernel Functions' plain backward
+# passes, as torch.profiler names them under torch.func
+PLAIN_BACKWARD = {"flash_attention_bwd_plain": "FlashAttention",
+                  "ssd_bwd_plain": "SSDScan"}
+
+
+def train_preset_phase(torch):
+    """(T1) ``launch.train.main --preset <p> --option C`` at TRAIN_PRESETS'
+    rounds and evaluation period, the driver's defaults otherwise, on the
+    card: s/round, the accuracy
+    series, staleness, the active ratio, ``apply_scaled`` launched once per
+    immediate apply (and no stacked apply), finite params; the checkpoint
+    read back by the port's ``load_server_state`` equal to the run's state
+    bit for bit; the busy share of a run of TRAIN_PROFILE_ROUNDS rounds.
+    Returns the ``apply_scaled`` launches by preset."""
+    from repro_torch.checkpoint import load_server_state
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    out_dir = ROOT / "build" / "train"
+    launches = {}
+    for preset, rounds, every in TRAIN_PRESETS:
+        argv = ["--preset", preset, "--option", "C", "--rounds",
+                str(rounds), "--eval-every", str(every), "--out",
+                str(out_dir)]
+        K.reset_launches()
+        with stacked_applies(K) as stacked:
+            t0 = time.perf_counter()
+            got = train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = {k: K.LAUNCHES[k] for k in ("apply_scaled", "apply_rows")}
+        launches[f"(T1) {preset}"] = n["apply_scaled"]
+        rec, state = got.record, got.run.state
+        check(finite(torch, state.params), f"(T1) {preset}: params not "
+                                           f"finite")
+        check(len(rec["acc"]) == rounds // every
+              and all(0.0 <= a <= 1.0 for a in rec["acc"]),
+              f"(T1) {preset}: accuracy series {rec['acc']}")
+        check(n == {"apply_scaled": rounds, "apply_rows": 0}
+              and stacked["applies"] == 0,
+              f"(T1) {preset}: launches {n}, stacked applies {stacked}: "
+              f"expected one apply_scaled launch per immediate apply "
+              f"({rounds})")
+        back = load_server_state(str(out_dir / f"{preset}_optC"))
+        same = all(np.array_equal(np.asarray(a), b.cpu().numpy())
+                   for a, b in zip(tree_leaves(back.params),
+                                   tree_leaves(state.params)))
+        check(same and len(tree_leaves(back.params))
+              == len(tree_leaves(state.params))
+              and (back.t, back.staleness_sum, back.staleness_max)
+              == (state.t, state.staleness_sum, state.staleness_max),
+              f"(T1) {preset}: the checkpoint read back differs from the "
+              f"run's state")
+        prof = profile_shares(torch, lambda: train.main(
+            ["--preset", preset, "--option", "C", "--rounds",
+             str(TRAIN_PROFILE_ROUNDS), "--eval-every",
+             str(TRAIN_PROFILE_ROUNDS), "--out", str(out_dir / "profile")]))
+        print(f"(T1) {preset} Option C, {rounds} rounds: wall {wall:.3f} s "
+              f"({wall / rounds:.5f} s/round; the driver's wall_s "
+              f"{rec['wall_s']:.3f}), acc {rec['acc']} at rounds "
+              f"{rec['rounds_series']}, staleness max "
+              f"{rec['staleness_max']} mean {rec['staleness_mean']:.4f}, "
+              f"mean active ratio {rec['mean_active_ratio']:.4f}, "
+              f"launches {json.dumps(n)} (planned {rounds} apply_scaled), "
+              f"checkpoint read back equal (t={int(back.t)}); profile of "
+              f"{TRAIN_PROFILE_ROUNDS} rounds: busy "
+              f"{prof['busy_share']:.4f} of {prof['wall_ms']:.1f} ms, "
+              f"{prof['device_kernels']} kernels, top "
+              f"{json.dumps(prof['top_ms'][:5])}", flush=True)
+    return launches
+
+
+def plain_backward_ms(torch, cfg, params, batch):
+    """Device ms of one gradient evaluation of the LM loss at ``params``,
+    and of the part of it inside the plain backward passes of
+    ``FlashAttention`` and ``SSDScan`` (their autograd nodes' ranges, read
+    through the profiler's function events)."""
+    from torch.func import grad
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+
+    def g():
+        return grad(lambda p, b: api.loss_fn(cfg, p, b))(params, batch)
+    g()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g()
+        torch.cuda.synchronize()
+    total = sum(ms for _, ms in device_events(torch, prof))
+    out = {k: 0.0 for k in PLAIN_BACKWARD}
+    for e in prof.events():
+        if not e.name.startswith("autograd::engine::evaluate_function:"):
+            continue
+        for key, fn in PLAIN_BACKWARD.items():
+            if fn in e.name:
+                out[key] += e.device_time_total / 1e3
+    return {"grad_eval_device_ms": total, **out}
+
+
+def train_arch_phase(torch, arch):
+    """(T2) ``launch.train.main --arch <arch>`` at published width, (8, 512),
+    Option C at TRAIN_CUT's Q and K, TRAIN_ROUNDS rounds: s/round (the
+    step, its loss evaluation and the loss's copy to the host), losses,
+    ``ssd_fwd`` / ``flash_attention_fwd`` launches against the plan (one
+    forward per gradient evaluation, Q·(K+1) of them, and one for the
+    round's loss) and ``apply_scaled`` once per round, the peak of device
+    memory, model TFLOP/s by the reference's count; then one more round
+    under the profiler (busy share, device time by kernel class) and one
+    gradient evaluation with the plain attention and SSD backward passes
+    named.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.ssd import kernel as KS
+    from repro_torch.launch import steps, train
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--rounds", str(TRAIN_ROUNDS), *TRAIN_CUT,
+            "--out", str(ROOT / "build" / "train")]
+    d = train.build_parser().parse_args(argv)
+    evals = d.q * (d.inner_steps + 1)       # gradient evaluations a round
+    _reset_lm_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _lm_launches()
+    ssd_kernels = KS.LAUNCHES["ssd_fwd_kernels"]
+    applies = K.LAUNCHES["apply_scaled"]
+    params = got.params
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    per = lm_forward_launches(cfg)
+    plan = tuple(TRAIN_ROUNDS * (evals + 1) * n for n in per)
+    check((n_params, len(leaves)) == LM_PARAMS[arch],
+          f"(T2) {arch}: {n_params} params in {len(leaves)} leaves")
+    check(launches == plan, f"(T2) {arch}: ssd_fwd / flash_attention_fwd "
+                            f"launched {launches} times, planned {plan}")
+    check(applies == TRAIN_ROUNDS * planned_launches(K, leaves, leaves),
+          f"(T2) {arch}: apply_scaled launched {applies} times in "
+          f"{TRAIN_ROUNDS} rounds")
+    losses = got.record["losses"]
+    check(len(losses) == TRAIN_ROUNDS and np.isfinite(losses).all()
+          and finite(torch, params), f"(T2) {arch}: losses {losses}")
+    flops = 6.0 * cfg.n_active_params * TRAIN_TOKENS * evals
+    tflops = [flops / s / 1e12 for s in got.round_s]
+    # one more round as the driver runs it, under the profiler
+    pcfg = PersAFLConfig(option=d.option, q_local=d.q, eta=d.eta,
+                         lam=d.lam, inner_steps=d.inner_steps,
+                         maml_mode=cfg.maml_mode)
+    step = steps.make_train_step(cfg, pcfg, n_microbatches=1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             synthetic_token_batch(TRAIN_ROUNDS, 8, 512, cfg.vocab).items()}
+
+    def one_round():
+        new, metrics = step(params, params, batch)
+        with torch.no_grad():
+            return float(api.loss_fn(cfg, new, batch)), \
+                float(metrics["delta_norm"])
+    prof = profile_shares(torch, one_round, moe=cfg.moe is not None)
+    bwd = plain_backward_ms(torch, cfg, params, batch)
+    bwd_ms = sum(bwd[k] for k in PLAIN_BACKWARD)
+    row = {"rounds": TRAIN_ROUNDS, "wall_s": wall, "round_s": got.round_s,
+           "losses": losses, "peak_device_gb": peak_gb,
+           "launches": {"ssd_fwd": launches[0],
+                        "flash_attention_fwd": launches[1],
+                        "apply_scaled": applies},
+           "planned": {"ssd_fwd": plan[0], "flash_attention_fwd": plan[1],
+                       "apply_scaled": TRAIN_ROUNDS},
+           "ssd_fwd_kernels": ssd_kernels,
+           "n_active_params": cfg.n_active_params,
+           "grad_evals_per_round": evals,
+           "model_tflops_per_round": flops / 1e12,
+           "model_tflop_per_s": tflops,
+           "bf16_peak_share": [t * 1e12 / H100_BF16_FLOPS for t in tflops],
+           "profile": prof, "plain_backward": bwd,
+           "plain_backward_share_of_grad_eval":
+               bwd_ms / bwd["grad_eval_device_ms"],
+           "plain_backward_share_of_round_est":
+               bwd_ms * evals / prof["busy_ms"]}
+    print(f"(T2) {arch} Option C Q={d.q} K={d.inner_steps} (8, 512), "
+          f"{TRAIN_ROUNDS} rounds: {json.dumps(row)}", flush=True)
+    del got, params, step, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_cpu_parity(torch, arch, label):
+    """(T3) one ``make_train_step`` round of ``arch`` at TRAIN_PARITY's cut
+    (published widths, 2 layers, f32, Option C, Q 2, K 2, (2, 128)), the
+    params drawn on the card and copied to the host: the card's new params
+    within PARAM_ATOL of the CPU's (and the round's change of them larger
+    than PARAM_ATOL, so a no-op or a sign-flipped change fails), its
+    ``delta_norm`` within TRAIN_NORM_RTOL; the card's ``ssd_fwd`` /
+    ``flash_attention_fwd`` launches one a forward (Q·(K+1) of them) and
+    one ``apply_scaled``.  Returns the card's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+    c = TRAIN_PARITY
+    cfg = dataclasses.replace(get_config(arch), n_layers=c["n_layers"],
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        p_gpu = api.init_params(cfg, gen, "cuda")
+    p_cpu = tree_map(lambda x: x.cpu(), p_gpu)
+    pcfg = PersAFLConfig(option="C", q_local=c["q_local"],
+                         inner_steps=c["inner_steps"], eta=0.01, lam=30.0,
+                         maml_mode=cfg.maml_mode)
+    step = steps.make_train_step(cfg, pcfg, n_microbatches=1)
+    batch = synthetic_token_batch(7, *c["shape"], cfg.vocab)
+    _reset_lm_launches()
+    t0 = time.perf_counter()
+    new_g, m_g = step(p_gpu, p_gpu, {k: torch.from_numpy(v).cuda()
+                                     for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _lm_launches() + (K.LAUNCHES["apply_scaled"],)
+    t0 = time.perf_counter()
+    new_c, m_c = step(p_cpu, p_cpu, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    diff = max(float((a.cpu() - b).abs().max())
+               for a, b in zip(tree_leaves(new_g), tree_leaves(new_c)))
+    moved = max(float((b - p).abs().max())
+                for b, p in zip(tree_leaves(new_c), tree_leaves(p_cpu)))
+    dn = (float(m_g["delta_norm"]), float(m_c["delta_norm"]))
+    fwd = c["q_local"] * (c["inner_steps"] + 1)
+    plan = tuple(fwd * n for n in lm_forward_launches(cfg)) + (1,)
+    print(f"{label} card vs CPU, {arch} at {c['n_layers']} layers f32, one "
+          f"make_train_step round (Option C, Q={c['q_local']}, "
+          f"K={c['inner_steps']}, {tuple(c['shape'])}): new params max "
+          f"|diff| {diff:.3e} (tol {PARAM_ATOL}), moved {moved:.3e}; "
+          f"delta_norm card {dn[0]:.9g} CPU {dn[1]:.9g} (rel "
+          f"{abs(dn[0] - dn[1]) / abs(dn[1]):.3e}, tol {TRAIN_NORM_RTOL}); "
+          f"card launches ssd_fwd/flash_attention_fwd/apply_scaled "
+          f"{launches} (planned {plan}); wall card {card_s:.2f} s CPU "
+          f"{cpu_s:.2f} s", flush=True)
+    check(diff <= PARAM_ATOL and moved > PARAM_ATOL,
+          f"{label} {arch}: new params card vs CPU differ by {diff} "
+          f"(moved {moved})")
+    check(abs(dn[0] - dn[1]) <= TRAIN_NORM_RTOL * abs(dn[1]),
+          f"{label} {arch}: delta_norm card {dn[0]} CPU {dn[1]}")
+    check(launches == plan, f"{label} {arch}: launches {launches}, planned "
+                            f"{plan}")
+    return launches
+
+
+def training_phases(torch):
+    """(T1)-(T3); returns ``launches_train`` by kernel."""
+    from repro_torch.kernels.fused_update import kernel as K
+    with timed("(T1)"):
+        presets = train_preset_phase(torch)
+    out = {"apply_scaled": dict(presets), "ssd_fwd": {},
+           "flash_attention_fwd": {}}
+    with timed("(T2)"):
+        for arch in TRAIN_ARCHS:
+            row = train_arch_phase(torch, arch)
+            for name, n in row["launches"].items():
+                if n:
+                    out[name][f"(T2) {arch}"] = n
+    with timed("(T3)"):
+        for arch in TRAIN_ARCHS:
+            ssd, flash, applies = train_cpu_parity(torch, arch, "(T3)")
+            for name, n in (("ssd_fwd", ssd), ("flash_attention_fwd", flash),
+                            ("apply_scaled", applies)):
+                if n:
+                    out[name][f"(T3) {arch}"] = n
+    K.reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_phases(torch):
     """Every phase in order, on the card; returns the card's line and
     the ``kernels`` list.  Raises SmokeFailure at the first failed
@@ -4341,6 +4688,8 @@ def run_phases(torch):
         ul, uprefill = moe_phases(torch)
     with timed("(x)-(z)"):
         xl, xprefill = whisper_phases(torch)
+    with timed("(T1)-(T3)"):
+        train_launches = training_phases(torch)
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -4376,6 +4725,9 @@ def run_phases(torch):
             entry["foreach_ms"] = main.get("foreach_ms")
         if name in transport_launches:
             entry["launches_transport"] = transport_launches[name]
+        if name in train_launches:
+            # the training driver's runs (T1)-(T3)
+            entry["launches_train"] = train_launches[name]
         if name == "ssd_fwd":
             entry["design_bytes"] = main["design_bytes"]
             entry["kernels_per_call"] = main["kernels_per_call"]

@@ -13,8 +13,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-from torch.func import grad
 
+from repro_torch.autodiff import grad
 from repro_torch.core import maml as maml_mod
 from repro_torch.core import moreau as me_mod
 from repro_torch.core.maml import tree_norm

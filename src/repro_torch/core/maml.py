@@ -16,8 +16,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.func import grad, jvp
+from torch.func import jvp
 
+from repro_torch.autodiff import grad
 from repro_torch.tree import tree_leaves, tree_map
 
 Loss = Callable  # loss_fn(params, batch) -> scalar tensor

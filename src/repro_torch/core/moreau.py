@@ -13,8 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
-from torch.func import grad
-
+from repro_torch.autodiff import grad
 from repro_torch.core.maml import _axpy, tree_norm
 from repro_torch.tree import tree_map
 

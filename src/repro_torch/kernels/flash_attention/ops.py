@@ -4,8 +4,9 @@
 ``mode`` picks the implementation:
 
   * ``"auto"``   -- the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (the reference's "auto" runs the Pallas kernel on its
-    accelerator and the plain version elsewhere);
+    CPU tensors and for meta tensors (shapes only, ``launch/specs.py``) (the
+    reference's "auto" runs the Pallas kernel on its accelerator and the
+    plain version elsewhere);
   * ``"kernel"`` -- the CUDA kernel (which raises on a CPU tensor);
   * ``"ref"``    -- the plain version on any device.
 
@@ -31,7 +32,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kernel's).  The kernel path hands the kernel contiguous q, k and v."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-    if mode == "ref" or (mode == "auto" and q.device.type == "cpu"):
+    if mode == "ref" or (mode == "auto" and q.device.type != "cuda"):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     return K.flash_attention_fwd(q.contiguous(), k.contiguous(),

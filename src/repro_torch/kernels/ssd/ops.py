@@ -3,8 +3,9 @@
 ``mode`` picks the implementation:
 
   * ``"auto"``   -- the CUDA kernel for CUDA tensors, the sequential plain
-    version for CPU tensors (the reference's "auto" runs the Pallas kernel on
-    its accelerator and the plain version elsewhere);
+    version for CPU tensors and for meta tensors (shapes only) (the
+    reference's "auto" runs the Pallas kernel on its accelerator and the
+    plain version elsewhere);
   * ``"kernel"`` -- the CUDA kernel (which raises on a CPU tensor);
   * ``"ref"``    -- the sequential-recurrence oracle on any device.
 
@@ -27,7 +28,7 @@ def ssd(x, dt, a_log, B_mat, C_mat, *, chunk: int = 128,
     and x/B/C in their dtype (made contiguous)."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-    if mode == "ref" or (mode == "auto" and x.device.type == "cpu"):
+    if mode == "ref" or (mode == "auto" and x.device.type != "cuda"):
         return ssd_ref(x, dt, a_log, B_mat, C_mat)
     return K.ssd_fwd(x.contiguous(), dt.float().contiguous(),
                      a_log.float().contiguous(), B_mat.contiguous(),

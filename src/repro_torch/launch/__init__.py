@@ -1,2 +1,3 @@
-"""Launch layer of the port: the serving driver (``serve.py``) and its step
-functions (``steps.py``)."""
+"""Launch layer of the port: the training driver (``train.py``), the serving
+driver (``serve.py``), their step functions (``steps.py``) and the input
+and parameter specs (``specs.py``)."""

@@ -139,8 +139,11 @@ class FlashAttention(torch.autograd.Function):
       does not look at the device, so the CPU tests exercise it through the
       plain forward.
 
-    There is no ``jvp``: forward-mode AD through the kernel raises the error
-    ``torch.func`` gives.
+    * jvp: the jvp of ``attention_ref`` on the saved q, k, v, so that
+      Option B's exact Hessian-vector product (``maml_mode="full"``,
+      ``torch.func.jvp`` of ``torch.func.grad``: gemma2-2b's,
+      codeqwen1.5-7b's, minitron-8b's and whisper-large-v3's) runs forward
+      mode through the kernel's forward and the plain backward.
     """
 
     @staticmethod
@@ -152,18 +155,31 @@ class FlashAttention(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window, cap = inputs
         ctx.save_for_backward(q, k, v)
+        ctx.save_for_forward(q, k, v)
         ctx.causal, ctx.window, ctx.cap = causal, window, cap
 
     @staticmethod
-    def backward(ctx, g):
+    def _plain(ctx):
         causal, window, cap = ctx.causal, ctx.window, ctx.cap
 
         def plain(q, k, v):
             return attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=cap)
+        return plain
 
-        _, vjp_fn = torch.func.vjp(plain, *ctx.saved_tensors)
+    @staticmethod
+    def backward(ctx, g):
+        _, vjp_fn = torch.func.vjp(FlashAttention._plain(ctx),
+                                   *ctx.saved_tensors)
         return (*vjp_fn(g), None, None, None)
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, *_):
+        primals = ctx.saved_tensors
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, (tq, tk, tv)))
+        return torch.func.jvp(FlashAttention._plain(ctx), primals,
+                              tangents)[1]
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, cap):

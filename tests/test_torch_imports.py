@@ -69,5 +69,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.fl.scenario.churn",
                  "repro_torch.fl.scenario.sched", "repro_torch.tune",
                  "repro_torch.tune.space", "repro_torch.tune.stop",
-                 "repro_torch.tune.runner", "repro_torch.tune.report"):
+                 "repro_torch.tune.runner", "repro_torch.tune.report",
+                 "repro_torch.launch.train", "repro_torch.launch.specs",
+                 "repro_torch.optim", "repro_torch.optim.optimizers",
+                 "repro_torch.autodiff"):
         assert name in out["modules"]

@@ -1,0 +1,12 @@
+"""``make_train_step`` against the reference's at the encdec family's
+smoke config (whisper-large-v3), Options A and C: ``check_train_step`` and its
+tolerances are ``tests/test_torch_train_step.py``'s."""
+import pytest
+
+from test_torch_train_step import _one_torch_thread  # noqa: F401
+from test_torch_train_step import check_train_step
+
+
+@pytest.mark.parametrize("option", ["A", "C"])
+def test_train_step_matches_reference(option):
+    check_train_step("whisper-large-v3", option)

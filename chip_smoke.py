@@ -287,7 +287,7 @@ Phases; any failure exits non-zero and prints no result line:
      DECODE_TOL.
 
  14. training (``launch/train.py``) -- (T1) ``launch.train.main --preset
-     paper-mnist`` at its 200 rounds and ``--preset paper-cifar`` cut to
+     paper-mnist`` cut to 100 rounds and ``--preset paper-cifar`` cut to
      20 (TRAIN_PRESETS), Option C at the driver's defaults (30 clients, Q =
      10, K = 10, batch 16): s/round, the accuracy series, staleness, the
      active ratio, ``apply_scaled`` launched once per immediate apply and no
@@ -312,6 +312,26 @@ Phases; any failure exits non-zero and prints no result line:
      attention and mamba2's scan at (8, 512), bf16), and ``apply_scaled``,
      ``ssd_fwd`` and ``flash_attention_fwd`` a ``launches_train`` count of
      (T1)-(T3).
+
+ 15. the multi-device paths on a one-rank mesh (``nccl``; the card's
+     machine has one H100 and NCCL refuses two ranks on one card) --
+     (M2) ``launch.serve.main --arch mamba2-130m --personalize
+     --model-axis 1 --coordinator 127.0.0.1:<free port> --num-processes 1
+     --process-id 0`` at (f)'s flags, fp32, against the same command on one
+     device with the server's engines mapping rows one at a time: the same
+     heads and tokens bit for bit, 0 host materializations, ``ssd_fwd`` 24
+     launches a loss evaluation of a row; (f)'s vmapped heads reported
+     beside them.  (M1) the fig2 setup at Option A under buffered(8) for
+     MESH_ROUNDS rounds with ``cohort_impl="map"``, ``"shard_map"`` on the 1-D mesh and
+     on the (1, 1) mesh with every leaf's last dim on "model" (cuDNN
+     deterministic): params bit-equal, timelines equal, ``apply_rows`` once
+     per stacked apply; the sequential mode against ``rows_kernel`` on a
+     sharded bank within TOLS; then the (e) users under int8 banking for
+     MESH_SERVE_WINDOWS windows with stragglers on one device and on the
+     (1, 1) mesh: params and heads bit-equal, ``apply_rows_q`` once per
+     bank.  (M3) ``make_cohort_train_step`` on ``make_host_mesh()`` against
+     ``make_train_step``, mamba2-130m at 2 layers, published widths, f32,
+     (2, 128): bit-equal.  The kernel rows gain ``launches_mesh``.
 
 Each group of phases prints its seconds (``phase <label>: <s> s``).
 
@@ -1945,9 +1965,10 @@ RUNS = {
 }
 
 
-def fl_run(setup, strategy_spec, option, eta, sched, device):
+def fl_run(setup, strategy_spec, option, eta, sched, device, **kw):
     """An ``FLRun`` of the fig2 setup: ``strategy_spec`` is ``(name,
-    kwargs)``, ``sched`` ``(schedule name, *args)``."""
+    kwargs)``, ``sched`` ``(schedule name, *args)``; ``kw`` goes to
+    ``FLRun`` (the engine's ``cohort_impl``, ``mesh``, ...)."""
     from repro_torch.core import PersAFLConfig
     from repro_torch.fl import (DelayModel, FLRun, buffered, immediate,
                                 strategy, sync_barrier)
@@ -1958,7 +1979,8 @@ def fl_run(setup, strategy_spec, option, eta, sched, device):
                  pcfg=PersAFLConfig(option=option, eta=eta, **FIG2),
                  delays=DelayModel(len(clients), seed=0),
                  strategy=strategy(strategy_spec[0], **strategy_spec[1]),
-                 schedule=schedule, batch_size=16, seed=0, device=device)
+                 schedule=schedule, batch_size=16, seed=0, device=device,
+                 **kw)
 
 
 def make_run(torch, setup, name, device):
@@ -2584,7 +2606,7 @@ def _lm_launches():
 
 
 def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
-                     plen=None, split_memory=False):
+                     plen=None, split_memory=False, ref_out=None):
     """(f) / (i) / (r): ``repro_torch.launch.serve.main`` on the card at
     full width, ``users`` users, mode C, fp32 and int8 banking, with
     ``subset`` as ``--personal-subset`` and ``plen`` as
@@ -2592,7 +2614,8 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
     Counts and the peak of device memory are zeroed just before each run.
     With ``split_memory`` the int8 run is traced by the allocator from
     ``serve.main`` to a second flush, and the peaks of both split by
-    allocating line (``memory_split``).  Returns
+    allocating line (``memory_split``).  With ``ref_out`` (a dict) the
+    fp32 run's heads and tokens are copied into it, on the host.  Returns
     per-codec numbers and the (int8 run's) config and params."""
     from torch.func import vmap
 
@@ -2643,6 +2666,9 @@ def lm_serving_phase(torch, arch, label, subset=None, users=LM_USERS,
               f"{label} {codec}: personalized heads not finite")
         check(tuple(run.out_tokens.shape) == (users, LM_TOKENS),
               f"{label} {codec}: decoded {tuple(run.out_tokens.shape)}")
+        if ref_out is not None and codec == "fp32":
+            ref_out["heads"] = tree_map(lambda x: x.cpu(), run.heads)
+            ref_out["tokens"] = run.out_tokens.cpu()
         # every user's head against the global params on their own stream,
         # one vmapped forward each; a subset head goes over the shared
         # backbone with in_dims None on the backbone's leaves
@@ -4272,12 +4298,12 @@ def listen_phase(torch, device="cuda", smoke=False):
 
 # (T1): launch/train.py --preset at its defaults (Option C, 30 clients, Q 10,
 # K 10, batch 16); (name, rounds, --eval-every).  paper-cifar is cut from
-# 200 rounds to 20, evaluated every 10, for the 1200 s budget: at 200 rounds
-# the two presets took 67.3 + 81.0 s, and their 20-round profiles 11.4 +
-# 15.4 s (NVIDIA H100 80GB HBM3 at 700 W).  The device's busy share is read
-# from a run of its own of TRAIN_PROFILE_ROUNDS rounds, so that the
-# profiler's cost stays out of s/round
-TRAIN_PRESETS = (("paper-mnist", 200, 50), ("paper-cifar", 20, 10))
+# 200 rounds to 20, evaluated every 10, and paper-mnist from 200 to 100
+# (the script took 1115 s with (M1)-(M3) at 200), for the 1200 s budget: at 200 rounds the two presets took 67.3 + 81.0 s, and their
+# 20-round profiles 11.4 + 15.4 s (NVIDIA H100 80GB HBM3 at 700 W).  The
+# device's busy share is read from a run of its own of TRAIN_PROFILE_ROUNDS
+# rounds, so that the profiler's cost stays out of s/round
+TRAIN_PRESETS = (("paper-mnist", 100, 50), ("paper-cifar", 20, 10))
 TRAIN_PROFILE_ROUNDS = 5
 # (T2): launch/train.py --arch at published width, (B, S) = (8, 512),
 # Option C, TRAIN_ROUNDS rounds each at Q and K cut to TRAIN_CUT: at the
@@ -4579,6 +4605,370 @@ def training_phases(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases (M1)-(M3): the multi-device paths on a one-rank mesh (nccl)
+# ---------------------------------------------------------------------------
+
+# (M1): the fig2 setup under buffered(8) for MESH_ROUNDS server rounds,
+# Option A at (d)'s eta: every layout maps its rows one at a time, and
+# (a)'s Option C (K = 10 prox steps a local step) took 1.5 s a round at 20
+# rounds, 3.2 at 8 (the first cohort holds every client; NVIDIA H100 80GB
+# HBM3 at 700 W), past the phases' 60 s
+MESH_ROUNDS = 20
+MESH_OPTION, MESH_ETA = "A", 0.01
+# (M1): int8 serving windows on the (1, 1) mesh
+MESH_SERVE_WINDOWS = 2
+# (M3): mamba2-130m at published width cut to 2 layers, f32, at (2, 128)
+MESH_STEP = dict(n_layers=2, shape=(2, 128), q_local=2)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms while the block runs (two runs of
+    the same convolutions give the same bits)."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+@contextlib.contextmanager
+def engines_mapped():
+    """The server's engines built with ``cohort_impl="map"`` while the block
+    runs: rows one at a time on one device, the computation the sharded
+    engine makes on each rank."""
+    from repro_torch.serving import server
+    real = server.CohortEngine
+
+    def mapped(*args, **kw):
+        return real(*args, **dict(kw, cohort_impl="map"))
+    server.CohortEngine = mapped
+    try:
+        yield
+    finally:
+        server.CohortEngine = real
+
+
+def mesh_serve_phase(torch, f_ref):
+    """(M2) ``launch.serve.main --arch mamba2-130m --personalize
+    --model-axis 1 --coordinator 127.0.0.1:<free port> --num-processes 1
+    --process-id 0`` at (f)'s width and flags, fp32: the sharded server on
+    the 1x1 ("cohort", "model") mesh (nccl), the group started and
+    destroyed by ``serve.main``; against the same command without the
+    flags with the server's engines mapping their rows one at a time (what
+    the sharded engine does on each rank).  Checks: the same heads and
+    tokens bit for bit, no host materialization, ``ssd_fwd`` 24 launches a
+    loss evaluation of a row.  (f)'s heads, from a vmapped cohort whose
+    bf16 GEMMs round otherwise, are reported beside them.  Returns the
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+    argv = ["--arch", "mamba2-130m", "--personalize", "--requests",
+            str(LM_USERS), "--tokens", str(LM_TOKENS), "--prompt-len",
+            str(LM_PROMPT), "--inner-steps", str(LM_INNER_STEPS),
+            "--device", "cuda", "--out", str(ROOT / "build" / "serve")]
+    flags = ["--model-axis", "1", "--coordinator",
+             f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+             "--process-id", "0"]
+    runs = {}
+    for tag in ("map", "mesh"):
+        _reset_lm_launches()
+        t0 = time.perf_counter()
+        if tag == "map":
+            with engines_mapped():
+                run = serve.main(argv)
+        else:
+            run = serve.main(argv + flags)
+        wall = time.perf_counter() - t0
+        st = run.server.stats
+        rows = st["clients"] + st["padding_waste"]
+        runs[tag] = {
+            "heads": [x.cpu() for x in tree_leaves(run.heads)],
+            "tokens": run.out_tokens.cpu(),
+            "row": {"main_wall_s": wall,
+                    "personalize_flush_s": run.personalize_s,
+                    "decode_s": run.decode_s,
+                    "cohort_calls": st["cohort_calls"],
+                    "host_materializations": st["host_materializations"],
+                    "ssd_fwd_launches": _lm_launches()[0],
+                    "expected_ssd_fwd": lm_forward_launches(run.cfg)[0]
+                    * (LM_INNER_STEPS + 1) * rows,
+                    "engine": run.server.engines["C"].cohort_impl,
+                    "model_axis": run.record["model_axis"]}}
+        del run
+    torch.cuda.empty_cache()
+    one, two = runs["map"], runs["mesh"]
+    same = all(torch.equal(a, b) for a, b in zip(one["heads"],
+                                                 two["heads"]))
+    same_tokens = bool(torch.equal(one["tokens"], two["tokens"]))
+    vs_f = max(float((a - b).abs().max()) for a, b in
+               zip(two["heads"], tree_leaves(f_ref["heads"])))
+    f_tokens = float((two["tokens"] == f_ref["tokens"]).float().mean())
+    print(f"(M2) mamba2-130m serve --model-axis 1 (1x1 mesh, nccl) against "
+          f"the same command on one device, rows mapped: heads bit-equal "
+          f"{same}, tokens equal {same_tokens}; against (f)'s vmapped "
+          f"cohort: heads max |diff| {vs_f:.3e}, tokens {f_tokens:.4f} "
+          f"equal; map {json.dumps(one['row'])}; mesh "
+          f"{json.dumps(two['row'])}", flush=True)
+    check(not dist.is_initialized(),
+          "(M2): serve.main left its process group up")
+    check(two["row"]["engine"] == "shard_map"
+          and one["row"]["engine"] == "map",
+          f"(M2): engines {one['row']['engine']} / {two['row']['engine']}")
+    check(same and same_tokens,
+          "(M2): the sharded server's heads or tokens differ from the "
+          "one-device server's")
+    for tag, run in runs.items():
+        r = run["row"]
+        check(r["host_materializations"] == 0,
+              f"(M2) {tag}: {r['host_materializations']} host "
+              f"materializations")
+        check(r["ssd_fwd_launches"] == r["expected_ssd_fwd"],
+              f"(M2) {tag}: ssd_fwd launched {r['ssd_fwd_launches']} "
+              f"times, expected {r['expected_ssd_fwd']}")
+    return {"ssd_fwd": two["row"]["ssd_fwd_launches"]}
+
+
+def mesh_serving_check(torch, setup, mesh, shardings):
+    """(M1) serving: the (e) users under int8 banking, MESH_SERVE_WINDOWS
+    windows with stragglers, on one device with rows mapped and on
+    ``mesh`` with ``shardings`` (cuDNN deterministic): the same params
+    after every window and the same heads, bit for bit; ``apply_rows_q``
+    once per contributing bank on the mesh.  Returns its launches."""
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.serving import PersonalizationServer
+    from repro_torch.sharding import ctx
+    from repro_torch.tree import tree_leaves
+    clients, params, loss, _ = setup
+    batches = serve_batches(clients, MESH_SERVE_WINDOWS)
+    uids = [f"user{u}" for u in range(len(clients))]
+    out = {}
+    for tag, kw in (("map", dict(cohort_impl="map")),
+                    ("mesh", dict(cohort_impl="shard_map", mesh=mesh,
+                                  param_shardings=shardings))):
+        srv = PersonalizationServer(params, loss, PersAFLConfig(**SERVE),
+                                    max_pending=64, device="cuda",
+                                    delta_dtype="int8", modes=("C",), **kw)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        banks, _ = drive_server(torch, srv, batches, MESH_SERVE_WINDOWS)
+        wall = time.perf_counter() - t0
+        out[tag] = {"launches": K.LAUNCHES["apply_rows_q"],
+                    "banks": sum(banks), "wall": wall,
+                    "params": [x.cpu() for x in
+                               tree_leaves(ctx.gather(srv.params))],
+                    "heads": [x.cpu() for x in
+                              tree_leaves(srv.stacked_heads(uids))],
+                    "hm": srv.stats["host_materializations"]}
+    one, two = out["map"], out["mesh"]
+    same = all(torch.equal(a, b) for a, b in zip(one["params"],
+                                                 two["params"])) \
+        and all(torch.equal(a, b) for a, b in zip(one["heads"],
+                                                  two["heads"]))
+    print(f"(M1) int8 serving, {MESH_SERVE_WINDOWS} windows of "
+          f"{len(uids)} users: the (1,1) mesh against one device bit-equal "
+          f"{same}; apply_rows_q {two['launches']} launches for "
+          f"{two['banks']} banks; s/window {one['wall'] / MESH_SERVE_WINDOWS:.4f}"
+          f" / {two['wall'] / MESH_SERVE_WINDOWS:.4f}", flush=True)
+    check(same, "(M1) int8 serving: the mesh's params or heads differ")
+    # one launch per contributing bank: the CNN's leaves are one table
+    want = -(-len(tree_leaves(params)) // K.max_leaves()) * two["banks"]
+    check(two["launches"] == want > 0 and two["hm"] == 0,
+          f"(M1) int8 serving: apply_rows_q {two['launches']} launches for "
+          f"{two['banks']} banks, {two['hm']} host materializations")
+    return two["launches"]
+
+
+def mesh_flrun_phase(torch, setup):
+    """(M1) the fig2 setup (MNIST CNN, 30 clients) at MESH_OPTION under
+    buffered(8) for MESH_ROUNDS rounds with ``cohort_impl="map"``, with
+    ``"shard_map"`` on the 1-D mesh and on the (1, 1) mesh with every leaf's
+    last dim on "model", cuDNN deterministic: params bit-equal and the
+    timeline equal across the three; ``apply_rows`` once per stacked apply
+    (on a one-rank mesh the bank spans no devices: the kernel); the
+    sequential mode forced on a sharded bank against the kernel within
+    TOLS; s/round of each; then :func:`mesh_serving_check`.  Returns the
+    ``apply_rows`` launches by layout, the int8 serving check's
+    ``apply_rows_q`` launches and s/round."""
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.fused_update import ops
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.rules import NamedSharding, P
+    from repro_torch.tree import tree_leaves, tree_map
+    m1 = ctx.cohort_mesh()
+    m11 = ctx.cohort_model_mesh(1)
+    shardings = tree_map(lambda x: NamedSharding(
+        m11, P(*([None] * (x.dim() - 1)), "model")), setup[1])
+    layouts = {"map": dict(cohort_impl="map"),
+               "1-D": dict(cohort_impl="shard_map", mesh=m1),
+               "(1,1)": dict(cohort_impl="shard_map", mesh=m11,
+                             param_shardings=shardings)}
+    out, launches = {}, {}
+    with deterministic_cudnn(torch):
+        for tag, kw in layouts.items():
+            run = fl_run(setup, ("persafl", {"option": MESH_OPTION}),
+                         MESH_OPTION, MESH_ETA, ("buffered", 8), "cuda", **kw)
+            K.reset_launches()
+            with stacked_applies(K) as stacked:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hist = run.run(max_rounds=MESH_ROUNDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches[tag] = K.LAUNCHES["apply_rows"]
+            params = ctx.gather(run.params)
+            out[tag] = {
+                "params": [x.cpu() for x in tree_leaves(params)],
+                "timeline": (list(hist.staleness), list(hist.active_times),
+                             list(hist.active_ratio), hist.end_time),
+                "s_per_round": wall / MESH_ROUNDS,
+                "stacked": dict(stacked), "run": run,
+                "hm": run.engine.stats["host_materializations"]}
+            print(f"(M1) {tag}: Option {MESH_OPTION}, {MESH_ROUNDS} rounds "
+                  f"buffered(8), "
+                  f"{out[tag]['s_per_round']:.4f} s/round, apply_rows "
+                  f"{launches[tag]} launches for {json.dumps(stacked)}, "
+                  f"placements "
+                  f"{getattr(run.params['fc'][0]['w'], 'placements', None)}",
+                  flush=True)
+            check(finite(torch, params), f"(M1) {tag}: params not finite")
+            check(launches[tag] == stacked["planned"] > 0,
+                  f"(M1) {tag}: apply_rows launched {launches[tag]} times, "
+                  f"{stacked['planned']} planned")
+            check(out[tag]["hm"] == 0, f"(M1) {tag}: host materializations")
+    for tag in ("1-D", "(1,1)"):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(out[tag]["params"], out["map"]["params"])),
+              f"(M1) {tag}: params differ from cohort_impl='map'")
+        check(out[tag]["timeline"] == out["map"]["timeline"],
+              f"(M1) {tag}: timeline differs from cohort_impl='map'")
+    # the sequential mode on a sharded bank against rows_kernel
+    run = out["(1,1)"]["run"]
+    batches = [run._sample(i) for i in range(8)]
+    bank = run.engine.update_cohort(run.params, batches)
+    w = torch.full((bank.capacity,), 1.0 / 8, device="cuda")
+    K.reset_launches()
+    want = ops.apply_rows_tree(run.params, bank.stacked, w)
+    n_kernel = K.LAUNCHES["apply_rows"]
+    got = ops.apply_rows_tree(run.params, bank.stacked, w, mode="seq")
+    check(n_kernel > 0 and K.LAUNCHES["apply_rows"] == n_kernel,
+          f"(M1) seq: launches {K.LAUNCHES['apply_rows']} (kernel "
+          f"{n_kernel})")
+    err = max(float((ctx.local(a) - ctx.local(b)).abs().max())
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    tol = TOLS["apply_rows"]
+    ok = all(torch.allclose(ctx.local(a), ctx.local(b), **tol)
+             for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    print(f"(M1) mode='seq' against rows_kernel on the (1,1) bank "
+          f"(capacity {bank.capacity}): max |diff| {err:.3e} (tol {tol})",
+          flush=True)
+    check(ok, f"(M1) seq against rows_kernel: {err:.3e}")
+    with deterministic_cudnn(torch):
+        rows_q = mesh_serving_check(torch, setup, m11, shardings)
+    K.reset_launches()
+    return launches, rows_q, {k: v["s_per_round"] for k, v in out.items()}
+
+
+def mesh_step_phase(torch):
+    """(M3) ``make_cohort_train_step`` on ``make_host_mesh()`` (1x1
+    ("data", "model"), nccl) against ``make_train_step``: mamba2-130m at
+    published width cut to MESH_STEP's 2 layers, f32, Option A, Q = 2, at
+    (2, 128), the same params and batch: bit-equal new params and
+    metrics; ``ssd_fwd`` and ``apply_scaled`` launched by both.  Returns
+    the cohort step's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PersAFLConfig
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    c = MESH_STEP
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              n_layers=c["n_layers"], dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        params = api.init_params(cfg, gen, "cuda")
+    pcfg = PersAFLConfig(option="A", q_local=c["q_local"], eta=0.01)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             synthetic_token_batch(3, *c["shape"], cfg.vocab).items()}
+    out = {}
+    with deterministic_cudnn(torch):
+        for tag, step in (
+                ("train", steps.make_train_step(cfg, pcfg, 1)),
+                ("cohort", steps.make_cohort_train_step(
+                    cfg, pcfg, lmesh.make_host_mesh(), 1))):
+            _reset_lm_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = step(params, params, batch)
+            torch.cuda.synchronize()
+            out[tag] = (new, m, time.perf_counter() - t0,
+                        {"ssd_fwd": _lm_launches()[0],
+                         "apply_scaled": K.LAUNCHES["apply_scaled"]})
+    (p1, m1, s1, n1), (p2, m2, s2, n2) = out["train"], out["cohort"]
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(p1), tree_leaves(p2)))
+    same_m = all(torch.equal(m1[k], m2[k]) for k in m1)
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(p1), tree_leaves(params)))
+    print(f"(M3) mamba2-130m at {c['n_layers']} layers f32 {c['shape']}: "
+          f"make_cohort_train_step on the 1x1 mesh {s2:.3f} s, "
+          f"make_train_step {s1:.3f} s; bit-equal params {same}, metrics "
+          f"{same_m}, moved {moved:.3e}; launches {json.dumps(n2)} "
+          f"(train step {json.dumps(n1)})", flush=True)
+    check(same and same_m, "(M3): the cohort step differs from the train "
+                           "step on a one-rank mesh")
+    check(moved > 0.0, "(M3): the step did not move the params")
+    check(n2 == n1 and n2["ssd_fwd"] > 0 and n2["apply_scaled"] == 1,
+          f"(M3): launches {n2} (train step {n1})")
+    return n2
+
+
+def mesh_phases(torch, setup, f_ref):
+    """(M1)-(M3); returns ``launches_mesh`` by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.sharding import ctx
+    with timed("(M2)"):
+        m2 = mesh_serve_phase(torch, f_ref)
+    ctx.init_distributed(coordinator=f"127.0.0.1:{_free_port()}",
+                         num_processes=1, process_id=0, device="cuda",
+                         timeout_s=120)
+    try:
+        with timed("(M1)"):
+            m1, rows_q, s_round = mesh_flrun_phase(torch, setup)
+        with timed("(M3)"):
+            m3 = mesh_step_phase(torch)
+    finally:
+        ctx.reset_mesh_cache()
+        dist.destroy_process_group()
+    print(f"(M1) s/round {json.dumps(s_round)}", flush=True)
+    K.reset_launches()
+    torch.cuda.empty_cache()
+    return {"apply_rows": {f"(M1) {k}": v for k, v in m1.items()},
+            "apply_rows_q": {"(M1) int8 serving (1,1)": rows_q},
+            "ssd_fwd": {"(M2)": m2["ssd_fwd"], "(M3)": m3["ssd_fwd"]},
+            "apply_scaled": {"(M3)": m3["apply_scaled"]}}
+
+
 def run_phases(torch):
     """Every phase in order, on the card; returns the card's line and
     the ``kernels`` list.  Raises SmokeFailure at the first failed
@@ -4653,8 +5043,9 @@ def run_phases(torch):
     with timed("(e)"):
         serve_launches, _ = serving_phase(torch, setup)
     with timed("(f)-(h)"):
+        f_ref = {}
         lm, (lm_cfg, lm_params) = lm_serving_phase(torch, "mamba2-130m",
-                                                   "(f)")
+                                                   "(f)", ref_out=f_ref)
         prefill = prefill_phase(torch, lm_cfg, lm_params, "(g)")
         del lm_params
         torch.cuda.empty_cache()
@@ -4690,6 +5081,9 @@ def run_phases(torch):
         xl, xprefill = whisper_phases(torch)
     with timed("(T1)-(T3)"):
         train_launches = training_phases(torch)
+    with timed("(M1)-(M3)"):
+        mesh_launches = mesh_phases(torch, setup, f_ref)
+    del f_ref
 
     kernels = []
     main_shapes = {"ssd_fwd": SSD_MAIN_SHAPE,
@@ -4728,6 +5122,9 @@ def run_phases(torch):
         if name in train_launches:
             # the training driver's runs (T1)-(T3)
             entry["launches_train"] = train_launches[name]
+        if name in mesh_launches:
+            # the multi-device paths on a one-rank mesh, (M1)-(M3)
+            entry["launches_mesh"] = mesh_launches[name]
         if name == "ssd_fwd":
             entry["design_bytes"] = main["design_bytes"]
             entry["kernels_per_call"] = main["kernels_per_call"]

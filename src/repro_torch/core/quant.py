@@ -26,6 +26,11 @@ Handles the serving stack consumes:
   * :class:`QuantizedHeads` -- a lazy head bank, ``head = snapshot −
     scale·q`` per gather, so int8 serving stores no fp32 head bank.
 
+On a mesh (the sharded server) a :class:`QuantStack`'s codes are placed as
+the fp32 bank's rows were and its scales split over "cohort"; both handles
+then gather a row whole from the rank that owns it, with the same
+arithmetic, so the bits do not depend on the layout.
+
 The window apply never dequantizes a bank: ``core.server.apply_admitted_rows``
 hands a :class:`QuantStack` to the ``apply_rows_q`` kernel.
 """
@@ -36,6 +41,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.sharding.ctx import gather, is_sharded, take_row
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -162,6 +168,10 @@ def ef_quantize_stack(raw, residual=None):
                  for parts in (delta, res))
 
 
+def _stack_rows(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def _take(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, rows)
 
@@ -187,7 +197,14 @@ class QuantizedBank:
         return self.k
 
     def rows(self, rows):
-        """Dequantized f32 ``[len(rows), ...]`` gather on the device."""
+        """Dequantized f32 ``[len(rows), ...]`` gather on the device.  A
+        stack placed on a mesh gives each row whole, from the rank that
+        owns it (a collective, see :mod:`repro_torch.sharding.ctx`)."""
+        if is_sharded(tree_leaves(self.stacked.q)[0]):
+            return _stack_rows([tree_map(
+                lambda q, s: gather(take_row(q, r)).float()
+                * gather(take_row(s, r)), self.stacked.q,
+                self.stacked.scales) for r in rows])
         idx = _index(rows, tree_leaves(self.stacked.q)[0].device)
         # one f32 temporary a leaf: the product is taken in place
         return tree_map(
@@ -215,6 +232,10 @@ class QuantizedHeads:
 
     def rows(self, rows):
         st = self.qbank.stacked
+        if is_sharded(tree_leaves(st.q)[0]):
+            d = self.qbank.rows(rows)
+            return tree_map(lambda p, dd: (gather(p)[None].float() - dd).to(
+                p.dtype), self.snapshot, d)
         idx = _index(rows, tree_leaves(st.q)[0].device)
 
         def one(p, q, s):

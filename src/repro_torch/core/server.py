@@ -37,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_update.ops import (apply_delta_tree,
                                                   apply_rows_q_tree,
                                                   apply_rows_tree)
+from repro_torch.sharding.ctx import gather, rowwise
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -98,25 +99,28 @@ def apply_buffered(state: ServerState, delta_sum, count, beta: float,
     return _advance(state, params, count, staleness_max, staleness_sum)
 
 
-def _apply_stack(params, delta_stack, w: torch.Tensor):
+def _apply_stack(params, delta_stack, w: torch.Tensor, order=None):
     """The stacked apply of one bank: a full-model stack rewrites every
     leaf; a personal-subset stack (the pruned structure of
     :mod:`repro_torch.core.subset`) rewrites only the subset leaves and
     passes the backbone through as the same tensors.  A
-    :class:`QuantStack` goes to ``apply_rows_q``."""
+    :class:`QuantStack` goes to ``apply_rows_q``.  ``order`` is the row
+    order of a stack that spans devices."""
     quant = isinstance(delta_stack, QuantStack)
     q_tree = delta_stack.q if quant else delta_stack
     full = leaf_paths(q_tree) == leaf_paths(params)
     target = params if full else subset_like(params, q_tree)
     if quant:
-        new = apply_rows_q_tree(target, delta_stack.q, delta_stack.scales, w)
+        new = apply_rows_q_tree(target, delta_stack.q, delta_stack.scales, w,
+                                order=order)
     else:
-        new = apply_rows_tree(target, delta_stack, w)
+        new = apply_rows_tree(target, delta_stack, w, order=order)
     return new if full else merge_subset(params, new)
 
 
 def apply_buffered_rows(state: ServerState, delta_stack, weights, count,
-                        staleness_max, staleness_sum=0.0) -> ServerState:
+                        staleness_max, staleness_sum=0.0,
+                        order=None) -> ServerState:
     """Stacked-buffer overload of :func:`apply_buffered`.
 
     ``delta_stack`` is a DeltaBank buffer — a params-shaped tree whose
@@ -126,11 +130,16 @@ def apply_buffered_rows(state: ServerState, delta_stack, weights, count,
     masks).  On the card the whole flush is one ``apply_rows`` launch for
     the tree; ``count`` is the number of admitted rows, which the version
     counter advances by.
+
+    A stack that spans devices (a sharded bank of ``cohort_impl=
+    "shard_map"``, on the 1-D or 2-D mesh alike) takes the sequential
+    apply: rows accumulate one at a time in ``order`` (row order when
+    None), so the result is the same bits on every mesh layout.
     """
     dev = tree_leaves(state.params)[0].device
     w = torch.as_tensor(np.asarray(weights, np.float32)).to(
         dev, non_blocking=True)
-    params = _apply_stack(state.params, delta_stack, w)
+    params = _apply_stack(state.params, delta_stack, w, order)
     return _advance(state, params, count, staleness_max, staleness_sum)
 
 
@@ -145,14 +154,15 @@ def apply_admitted_rows(state: ServerState, delta_stack, weights, count,
     against.  ``delta_stack`` may be a personal-subset stack (only the
     subset leaves are rewritten, the backbone passes through as the same
     tensors) and, under int8 delta banking, a :class:`QuantStack`, which
-    goes to ``apply_rows_q`` without an f32 copy of the bank.  ``order``,
-    the window's admission order, is accepted for the reference's
-    signature and ignored on one device (see
-    :func:`repro_torch.kernels.fused_update.ops.apply_rows_q_tree`).
+    goes to ``apply_rows_q`` without an f32 copy of the bank.  ``order`` is
+    the window's admission order, a total order on the rows that does not
+    depend on the mesh: on a stack that spans devices the rows accumulate
+    in that order, so the post-advance params are the same bits on the 1-D
+    ``("cohort",)`` and 2-D ``("cohort", "model")`` layouts, which place
+    the same users at different bank rows.
     """
-    del order
     return apply_buffered_rows(state, delta_stack, weights, count,
-                               staleness_max, staleness_sum)
+                               staleness_max, staleness_sum, order=order)
 
 
 def _rows_view(x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +176,7 @@ def bank_row_norms(delta_stack) -> np.ndarray:
     per leaf, exact for the symmetric codec).  Rows holding NaN/Inf give
     non-finite norms, which is how the robust weights find them."""
     tot = None
+    delta_stack = gather(delta_stack)   # a sharded bank, whole
     if isinstance(delta_stack, QuantStack):
         for q, sc in zip(tree_leaves(delta_stack.q),
                          tree_leaves(delta_stack.scales)):
@@ -180,11 +191,11 @@ def bank_row_norms(delta_stack) -> np.ndarray:
 
 
 def _rows_where(stack, keep: torch.Tensor):
-    def one(x):
-        k = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+    def one(x, kk):
+        k = kk.reshape((-1,) + (1,) * (x.dim() - 1))
         return torch.where(k, x, torch.zeros((), dtype=x.dtype,
                                              device=x.device))
-    return tree_map(one, stack)
+    return tree_map(lambda x: rowwise(x, keep, one), stack)
 
 
 def mask_rows(delta_stack, keep):
@@ -211,13 +222,15 @@ def scale_rows(delta_stack, factors):
     f = torch.as_tensor(np.asarray(factors, np.float32)).to(
         tree_leaves(q_tree)[0].device)
 
-    def one(x):
-        ff = f.reshape((-1,) + (1,) * (x.dim() - 1))
+    def one(x, fr):
+        ff = fr.reshape((-1,) + (1,) * (x.dim() - 1))
         return (x.float() * ff).to(x.dtype)
+
+    def rows(tree):
+        return tree_map(lambda x: rowwise(x, f, one), tree)
     if isinstance(delta_stack, QuantStack):
-        return QuantStack(q=delta_stack.q,
-                          scales=tree_map(one, delta_stack.scales))
-    return tree_map(one, delta_stack)
+        return QuantStack(q=delta_stack.q, scales=rows(delta_stack.scales))
+    return rows(delta_stack)
 
 
 def admission_weights(capacity: int, rows: List[Tuple[int, int]], *,

@@ -42,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.algorithms import fedprox_update, scaffold_update
 from repro_torch.fl.engine import CohortEngine, DeltaBank
 from repro_torch.fl.scenario.sched import EventStream, heap_events
+from repro_torch.sharding import ctx
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -523,6 +524,13 @@ class FLRun:
     :class:`repro_torch.fl.scenario.EventStream`, bit-equal to the heap) or
     ``"auto"`` (the stream from 4096 clients up); ``sync_barrier`` ignores
     it.
+
+    ``mesh`` and ``param_shardings`` go through to the engine (see
+    :class:`CohortEngine`): with ``cohort_impl="shard_map"`` every rank of
+    the mesh runs this same program and computes its own cohort slice.
+    Given ``param_shardings``, the params are stored placed by it from the
+    start and stay so after every server apply; the evaluation and the
+    client-state init see them whole.
     """
 
     def __init__(self, *, clients: List, loss_fn: Callable, init_params,
@@ -530,7 +538,8 @@ class FLRun:
                  strategy="persafl", schedule="immediate",
                  batch_size: int = 32, seed: int = 0,
                  vectorized: bool = True, cohort_impl: str = "auto",
-                 scheduler: str = "auto", device="cuda"):
+                 scheduler: str = "auto", device="cuda", mesh=None,
+                 param_shardings=None):
         if scheduler not in ("auto", "heap", "device"):
             raise ValueError(f"scheduler must be 'auto', 'heap' or "
                              f"'device', got {scheduler!r}")
@@ -549,7 +558,9 @@ class FLRun:
                                    vectorized=vectorized,
                                    cohort_impl=cohort_impl,
                                    strategy=self.strategy,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh,
+                                   param_shardings=param_shardings)
+        self.state.params = self.engine.place_params(self.state.params)
         self._cstates: List = [None] * len(clients)
         self._on_eval: Optional[Callable] = None
         self._stop = False
@@ -578,7 +589,7 @@ class FLRun:
             return None
         if self._cstates[i] is None:
             self._cstates[i] = self.strategy.init_client_state(
-                self.state.params)
+                ctx.gather(self.state.params))
         return self.strategy.dispatch_state(self._cstates[i])
 
     def _write_back(self, client_ids: List[int], bank: DeltaBank) -> None:
@@ -667,7 +678,7 @@ class FLRun:
         """Run one evaluation and append it to the History.  With
         ``notify=True`` a ``"stop"`` from the run's ``on_eval`` callback
         halts the loop after the current server apply."""
-        acc, loss = _normalize_eval(eval_fn(self.state.params))
+        acc, loss = _normalize_eval(eval_fn(ctx.gather(self.state.params)))
         hist.times.append(now)
         hist.rounds.append(int(t))
         hist.acc.append(acc)

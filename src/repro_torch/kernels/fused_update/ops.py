@@ -16,25 +16,38 @@ raises.  A tree front pairs the leaves of its trees in ``tree_leaves``
 order, so the trees must share one structure; the kernel path checks their
 leaf counts and shapes.
 
-The reference's ``"seq"`` mode and its dispatch for stacks that span several
-devices (``src/repro/kernels/fused_update/ops.py:83-94``, ``:181-186``) come
-with the port's multi-device slice.
+The stacked applies take a fourth mode, as the reference's
+(``src/repro/kernels/fused_update/ops.py:83-186``):
+
+  * ``"seq"`` -- the plain sequential apply (``ref.apply_rows_seq_ref``):
+    rows added one at a time in ``order`` (row order when None), so the
+    result does not depend on how the stack is split over ranks.
+
+``"auto"`` takes ``"seq"`` for a stack that spans devices (a DTensor over
+more than one rank, :func:`repro_torch.sharding.ctx.spans_devices`).  Each
+rank then gathers the stack's rows over the "cohort" axis, cut to its own
+piece of each param, and applies them to that piece; the params keep their
+placement.  A stack on a one-rank mesh spans no devices and goes to the
+kernel on its local tensors, as in the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ref as R
+from repro_torch.sharding.ctx import (is_sharded, like, local, piece_like,
+                                      rows_like, spans_devices)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _MODES = ("auto", "kernel", "ref")
+_ROW_MODES = _MODES + ("seq",)
 
 
-def _check_mode(mode: str) -> None:
-    if mode not in _MODES:
-        raise ValueError(f"mode must be one of {_MODES}, got {mode!r} (the "
-                         f"'seq' mode comes with the multi-device slice)")
+def _check_mode(mode: str, modes=_MODES) -> None:
+    if mode not in modes:
+        raise ValueError(f"mode must be one of {modes}, got {mode!r}")
 
 
 def _tree_on_kernel(mode: str, leaves) -> bool:
@@ -96,7 +109,13 @@ def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
     """Server apply w ← w − s·Δ over a params tree: on the card one launch
     per tree.
 
-    ``scale`` is a host float (β, β/M, or the damped β/(1+τ)^a)."""
+    ``scale`` is a host float (β, β/M, or the damped β/(1+τ)^a).  Placed
+    params (DTensor leaves) are applied on this rank's piece, with the
+    matching piece of each delta leaf, and keep their placement."""
+    if _any_sharded(w_tree):
+        return _on_pieces(
+            lambda w, d: apply_delta_tree(w, d, scale, mode), w_tree,
+            tree_map(piece_like, d_tree, w_tree))
     ws = tree_leaves(w_tree)
     if _tree_on_kernel(mode, ws):
         return tree_unflatten(
@@ -105,14 +124,44 @@ def apply_delta_tree(w_tree, d_tree, scale: float, mode: str = "auto"):
                     d_tree)
 
 
+def _any_sharded(*trees) -> bool:
+    return any(is_sharded(x) for t in trees for x in tree_leaves(t))
+
+
+def _on_pieces(fn, w_tree, *pieces):
+    """``fn`` on the local pieces of placed params ``w_tree`` and the plain
+    ``pieces`` trees cut to match them; the result placed as ``w_tree``."""
+    out = fn(tree_map(local, w_tree), *pieces)
+    return tree_map(like, out, w_tree)
+
+
+def _order(stack_tree, order):
+    if order is None:
+        return np.arange(tree_leaves(stack_tree)[0].shape[0])
+    return np.asarray(order, np.int64)
+
+
 def apply_rows_tree(w_tree, stack_tree, weights: torch.Tensor,
-                    mode: str = "auto"):
+                    mode: str = "auto", order=None):
     """Stacked server apply w ← w − Σᵢ weights[i]·Δᵢ per leaf: on the card
     one launch per tree.
 
     ``stack_tree`` is a DeltaBank buffer: a params-shaped tree whose leaves
     carry a leading ``[M]`` cohort axis; ``weights`` is the ``[M]`` float32
-    row-weight vector on the params' device."""
+    row-weight vector on the params' device.  ``order`` is the row order of
+    the ``"seq"`` mode (a stack that spans devices takes it)."""
+    _check_mode(mode, _ROW_MODES)
+    if mode == "auto" and spans_devices(stack_tree):
+        mode = "seq"
+    if mode == "seq":
+        order = _order(stack_tree, order)
+        return tree_map(lambda w, d: like(R.apply_rows_seq_ref(
+            local(w), rows_like(d, w), weights, order), w),
+            w_tree, stack_tree)
+    if _any_sharded(w_tree, stack_tree):
+        return _on_pieces(
+            lambda w, d: apply_rows_tree(w, d, weights, mode), w_tree,
+            tree_map(rows_like, stack_tree, w_tree))
     ws = tree_leaves(w_tree)
     if _tree_on_kernel(mode, ws):
         return tree_unflatten(
@@ -128,13 +177,21 @@ def apply_rows_q_tree(w_tree, q_tree, scales_tree, weights: torch.Tensor,
     over the components of a :class:`QuantStack`: ``q_tree`` (int8 leaves
     ``[M, ...]``) and ``scales_tree`` (f32 leaves ``[M]``, each leaf's own);
     on the card one launch per tree.  No f32 copy of the bank is made.
-
-    ``order`` (the serving window's admission order) is accepted and
-    ignored: on one device every leaf reduces its rows in one pass, and the
-    reference reads ``order`` only when the stack spans several devices
-    (``src/repro/kernels/fused_update/ops.py:150-158``), which comes with
-    the port's multi-device slice."""
-    del order
+    ``order`` is the ``"seq"`` mode's row order (the serving window's
+    admission order), as in :func:`apply_rows_tree`."""
+    _check_mode(mode, _ROW_MODES)
+    if mode == "auto" and spans_devices(q_tree):
+        mode = "seq"
+    if mode == "seq":
+        order = _order(q_tree, order)
+        return tree_map(lambda w, q, sc: like(R.apply_rows_q_seq_ref(
+            local(w), rows_like(q, w), rows_like(sc, None), weights,
+            order), w), w_tree, q_tree, scales_tree)
+    if _any_sharded(w_tree, q_tree):
+        return _on_pieces(
+            lambda w, q, sc: apply_rows_q_tree(w, q, sc, weights, mode),
+            w_tree, tree_map(rows_like, q_tree, w_tree),
+            tree_map(lambda sc: rows_like(sc, None), scales_tree))
     ws = tree_leaves(w_tree)
     if _tree_on_kernel(mode, ws):
         return tree_unflatten(

@@ -6,6 +6,7 @@ Option C outer:  w ← w − (ηλ)·(w − θ)
 Server apply:  w ← w − s·Δ
 Stacked apply: w ← w − Σᵢ sᵢ·Δᵢ   (fp32 bank rows, one reduction)
 Quantized:     w ← w − Σᵢ (sᵢ·scaleᵢ)·qᵢ   (int8 bank rows, f32 row scales)
+Sequential:    the two stacked applies with rows added one at a time
 
 The arithmetic is f32 and the result keeps the first operand's storage
 dtype, as in ``src/repro/kernels/fused_update/ref.py``.  Host scalars are
@@ -80,4 +81,33 @@ def apply_rows_q_ref(w: torch.Tensor, q_stack: torch.Tensor, scales,
              * torch.as_tensor(scales, dtype=torch.float32, device=w.device))
     coeff = coeff.reshape((-1,) + (1,) * w.dim())
     acc = torch.sum(coeff * q_stack.float(), dim=0)
+    return (w.float() - acc).to(w.dtype)
+
+
+def apply_rows_seq_ref(w: torch.Tensor, d_stack: torch.Tensor, weights,
+                       order) -> torch.Tensor:
+    """Order-invariant stacked apply: rows accumulate one at a time in f32,
+    in ``order`` (a permutation of the ``M`` rows), as
+    ``src/repro/kernels/fused_update/ref.py``'s ``apply_rows_seq_ref``.
+    Every step is elementwise, so the result is the same bits however the
+    stack's rows and row dims are split over ranks: the serving window's
+    flush passes its admission order, the same on every mesh layout.
+    Zero-weight padding rows add an exact ``+0``."""
+    s = torch.as_tensor(weights, dtype=torch.float32, device=w.device)
+    acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for j in np.asarray(order, np.int64):
+        acc = acc + s[j] * d_stack[j].float()
+    return (w.float() - acc).to(w.dtype)
+
+
+def apply_rows_q_seq_ref(w: torch.Tensor, q_stack: torch.Tensor, scales,
+                         weights, order) -> torch.Tensor:
+    """Quantized twin of :func:`apply_rows_seq_ref`: the dequant folded into
+    the f32 per-row coefficient ``weights[i]·scales[i]``, rows accumulated
+    one at a time in ``order``."""
+    coeff = (torch.as_tensor(weights, dtype=torch.float32, device=w.device)
+             * torch.as_tensor(scales, dtype=torch.float32, device=w.device))
+    acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for j in np.asarray(order, np.int64):
+        acc = acc + coeff[j] * q_stack[j].float()
     return (w.float() - acc).to(w.dtype)

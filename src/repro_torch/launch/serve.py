@@ -39,9 +39,29 @@ materializations and kernel launches of the run:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --listen 7777 --personal-subset embed/unembed --delta-dtype int8
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: ``--model-axis`` (the 2-D mesh) and ``--coordinator`` /
-``--num-processes`` / ``--process-id`` (multi-process serving).
+``--model-axis M`` serves over the 2-D ``("cohort", "model")`` mesh
+(:func:`repro_torch.sharding.ctx.cohort_model_mesh`): the server's engines
+run ``cohort_impl="shard_map"``, and the params, ring snapshots, delta banks
+and head rows are stored model-axis-sharded per
+:func:`repro_torch.sharding.rules.param_shardings`.  Served bits are the
+1-D path's; what the model axis buys is per-device residency.  M must
+divide the world size.
+
+Multi-process serving: ``--coordinator HOST:PORT --num-processes N
+--process-id I`` starts the ``torch.distributed`` process group before any
+device use (``init_method="tcp://HOST:PORT"``, ``nccl`` on the card,
+``gloo`` with ``--device cpu``), one process per device, each on
+``cuda:{local rank}``.  ``--coordinator`` alone implies ``--num-processes
+1``; ``--model-axis`` alone starts a one-process group at the default
+coordinator 127.0.0.1:12377.  Every process runs the same command with its
+own ``--process-id`` and serves the same users (the ranks' collectives pair
+up only when every rank submits the same requests in the same order).  With
+``--listen``, as in the reference, every process starts its own transport on
+the port.  A group this function started is destroyed before it returns:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --personalize --model-axis 1 --coordinator 127.0.0.1:29512 \
+      --num-processes 1 --process-id 0
 """
 from __future__ import annotations
 
@@ -65,9 +85,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_MESH = ("the multi-device paths come with ROADMAP.md Queue 1, "
-         "multi-device paths "
-         "(sharding/*, launch/mesh.py)")
+_COORDINATOR = "127.0.0.1:12377"   # the reference's default
 
 
 def _personalize_len(cfg, n: int) -> int:
@@ -243,15 +261,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--serve-seconds", type=float, default=None,
                     help="with --listen: stop after this many seconds "
                          "(default: serve until interrupted)")
-    # the reference's mesh and multi-process flags, not ported yet
     ap.add_argument("--model-axis", type=int, default=None, metavar="M",
-                    help="not ported yet (2-D mesh)")
+                    help="serve over the 2-D ('cohort', 'model') mesh with "
+                         "M-way model parallelism (the world size must be a "
+                         "multiple of M); banks/snapshots/heads/params are "
+                         "stored model-axis-sharded, served bits match the "
+                         "1-D path")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="not ported yet (multi-process serving)")
+                    help="torch.distributed rendezvous address; given alone "
+                         "it implies --num-processes 1")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="not ported yet (multi-process serving)")
-    ap.add_argument("--process-id", type=int, default=None,
-                    help="not ported yet (multi-process serving)")
+                    help="world size of the process group (one process per "
+                         "device; every process runs the same command with "
+                         "its own --process-id)")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank in [0, --num-processes)")
     return ap
 
 
@@ -328,18 +352,55 @@ def _serve_transport(args, server) -> None:
         pass
 
 
+def _start_group(args):
+    """Start the process group the flags ask for (checked first, so a bad
+    flag starts nothing); returns ``(device, started)``."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import ctx
+    world = 1 if args.num_processes is None else args.num_processes
+    if not 0 <= args.process_id < world:
+        raise ValueError(f"--process-id {args.process_id} must lie in [0, "
+                         f"--num-processes {world})")
+    if args.model_axis is not None and (args.model_axis < 1
+                                        or world % args.model_axis):
+        raise ValueError(f"model_axis={args.model_axis} must divide the "
+                         f"device count ({world})")
+    coordinator = args.coordinator or _COORDINATOR
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"--coordinator must be HOST:PORT, got "
+                         f"{coordinator!r}")
+    if args.coordinator is None and args.num_processes is None \
+            and args.model_axis is None:
+        return resolve_device(args.device), False
+    started = not dist.is_initialized()
+    dev = ctx.init_distributed(coordinator=coordinator, num_processes=world,
+                               process_id=args.process_id,
+                               device=args.device)
+    print(f"torch.distributed: rank {dist.get_rank()}/"
+          f"{dist.get_world_size()} ({dist.get_backend()}) on {dev}",
+          flush=True)
+    return dev, started
+
+
 def main(argv=None) -> ServeRun:
     args = build_parser().parse_args(argv)
-    if args.model_axis is not None:
-        raise NotImplementedError(f"--model-axis: {_MESH}")
-    if args.coordinator is not None or args.num_processes is not None \
-            or args.process_id is not None:
-        raise NotImplementedError(
-            f"--coordinator/--num-processes/--process-id: {_MESH}")
     if args.listen is not None:
         args.personalize = True
+    dev, started = _start_group(args)
+    try:
+        return _main(args, dev)
+    finally:
+        if started:
+            import torch.distributed as dist
 
-    dev = resolve_device(args.device)
+            from repro_torch.sharding.ctx import reset_mesh_cache
+            reset_mesh_cache()
+            dist.destroy_process_group()
+
+
+def _main(args, dev) -> ServeRun:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
@@ -366,15 +427,26 @@ def main(argv=None) -> ServeRun:
         pcfg = PersAFLConfig(option="C", lam=args.lam, alpha=args.alpha,
                              inner_steps=args.inner_steps, inner_eta=0.01)
         subset_spec = SubsetSpec.resolve(args.personal_subset, params)
+        mesh_kw = {}
+        if args.model_axis is not None:
+            from repro_torch.sharding.ctx import cohort_model_mesh
+            from repro_torch.sharding.rules import param_shardings
+            mesh = cohort_model_mesh(args.model_axis)
+            mesh_kw = {"cohort_impl": "shard_map", "mesh": mesh,
+                       "param_shardings": param_shardings(cfg, params, mesh)}
+            print(f"2-D mesh: cohort={mesh.shape[0]} × "
+                  f"model={mesh.shape[1]} over {mesh.size()} devices",
+                  flush=True)
         server = PersonalizationServer(params, loss, pcfg,
                                        modes=(args.mode,),
                                        max_pending=max(B, 1),
                                        personal_subset=subset_spec,
                                        delta_dtype=args.delta_dtype,
-                                       device=dev)
+                                       device=dev, **mesh_kw)
         # the server holds its own copy of the params: decode and the
-        # caller read that one, so one copy lives on the device
-        params = run.params = server.state.params
+        # caller read that one (whole), so one copy lives on the device
+        from repro_torch.sharding.ctx import gather
+        params = run.params = gather(server.state.params)
         run.server = server
         if args.listen is not None:
             _serve_transport(args, server)

@@ -11,8 +11,10 @@ kernel ``apply_scaled``, one launch per tree, for a tree on the card; f32
 arithmetic, stored in each leaf's dtype, out of place, so the server and
 stale params may be one tree).
 
-``make_cohort_train_step`` (the reference's FedBuff cohort round under
-``shard_map``) takes a mesh and comes with the multi-device paths.
+``make_cohort_train_step`` is the reference's FedBuff cohort round over a
+``torch.distributed`` ``DeviceMesh``: each rank along the data axes is one
+client on its block of the batch, and one ``all_reduce`` averages the
+deltas and metrics (:func:`repro_torch.sharding.ctx.cohort_slice`).
 """
 from __future__ import annotations
 
@@ -24,10 +26,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import PersAFLConfig, client_update
 from repro_torch.kernels.fused_update.ops import apply_delta_tree
 from repro_torch.models import api
-from repro_torch.tree import tree_leaves, tree_map
-
-_MESH = ("the cohort train step comes with ROADMAP.md Queue 1, "
-         "multi-device paths (sharding/*, launch/mesh.py)")
+from repro_torch.sharding.ctx import cohort_slice
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def microbatched(loss_fn: Callable, n_mb: int) -> Callable:
@@ -94,9 +94,40 @@ def make_train_step(cfg: ArchConfig, pcfg: PersAFLConfig,
 def make_cohort_train_step(cfg: ArchConfig, pcfg: PersAFLConfig, mesh,
                            n_microbatches: int = 0,
                            cohort_axes=None) -> Callable:
-    """The reference's FedBuff-style cohort round over a mesh's cohort
-    axes; raises until the port has a mesh."""
-    raise NotImplementedError(f"make_cohort_train_step: {_MESH}")
+    """FedBuff-style cohort round over ``mesh`` (a ``DeviceMesh``): each
+    rank along the data axes (``("data",)``, ``("pod", "data")`` with
+    pods, or ``cohort_axes``) is an independent client running Q local
+    steps at ``stale_params`` on its block of the batch (every rank passes
+    the same global batch); the deltas and the metrics are averaged once
+    at the end, one ``all_reduce`` per data axis of one flat f32 buffer
+    (a sum divided by the client count: ``gloo`` has no average), and the
+    server apply follows as in :func:`make_train_step`.  The model axis is
+    left alone: params stay whole on every rank.  On a one-rank mesh it is
+    :func:`make_train_step`, bit for bit."""
+    n_mb = n_microbatches or cfg.train_microbatches
+    loss = make_loss(cfg, n_mb)
+    names = tuple(mesh.mesh_dim_names)
+    d_axes = tuple(cohort_axes) if cohort_axes is not None \
+        else (("pod", "data") if "pod" in names else ("data",))
+
+    def train_step(server_params, stale_params, batch):
+        sl = cohort_slice(mesh, tree_leaves(batch)[0].shape[0], d_axes)
+        mine = tree_map(lambda x: x[sl.start:sl.stop], batch)
+        delta, metrics = client_update(pcfg, loss, stale_params,
+                                       _q_batches(pcfg, mine))
+        if sl.count > 1:
+            leaves = tree_leaves(delta) + [metrics[k] for k in sorted(metrics)]
+            flat = sl.all_reduce(torch.cat(
+                [x.float().reshape(-1) for x in leaves])) / sl.count
+            parts = torch.split(flat, [x.numel() for x in leaves])
+            means = [p.reshape(x.shape).to(x.dtype)
+                     for p, x in zip(parts, leaves)]
+            n = len(tree_leaves(delta))
+            delta = tree_unflatten(delta, means[:n])
+            metrics = dict(zip(sorted(metrics), means[n:]))
+        return apply_delta_tree(server_params, delta, pcfg.beta), metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

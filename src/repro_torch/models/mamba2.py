@@ -147,9 +147,13 @@ class SSDScan(torch.autograd.Function):
       ``(rows, H)``.  The rule does not look at the device, so the CPU tests
       exercise it through the plain forward.
 
-    There is no ``jvp``: forward-mode AD through the scan (Option B
-    ``maml_mode="full"``) raises the error ``torch.func`` gives.
-    mamba2-130m's config uses ``maml_mode="hf"``, which needs gradients only.
+    * jvp: the jvp of :func:`ssd_chunked` on the saved inputs, so that
+      Option B's exact Hessian-vector product (``maml_mode="full"``,
+      ``torch.func.jvp`` of ``torch.func.grad``) runs forward mode through
+      the kernel's forward and the plain backward, as the reference, which
+      differentiates ``ssd_chunked`` in either mode.  It composes with the
+      vmap rule.  mamba2-130m's and zamba2-1.2b's configs use
+      ``maml_mode="hf"``, which needs gradients only.
     """
 
     @staticmethod
@@ -161,6 +165,7 @@ class SSDScan(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, dt, a_log, B_mat, C_mat, chunk = inputs
         ctx.save_for_backward(x, dt, a_log, B_mat, C_mat)
+        ctx.save_for_forward(x, dt, a_log, B_mat, C_mat)
         ctx.chunk = chunk
 
     @staticmethod
@@ -169,6 +174,15 @@ class SSDScan(torch.autograd.Function):
         _, vjp_fn = torch.func.vjp(
             lambda *a: ssd_chunked(*a, chunk=chunk), *ctx.saved_tensors)
         return (*vjp_fn(gy), None)
+
+    @staticmethod
+    def jvp(ctx, tx, tdt, ta, tb, tc, _):
+        chunk = ctx.chunk
+        primals = ctx.saved_tensors
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, (tx, tdt, ta, tb, tc)))
+        return torch.func.jvp(lambda *a: ssd_chunked(*a, chunk=chunk),
+                              primals, tangents)[1]
 
     @staticmethod
     def vmap(info, in_dims, x, dt, a_log, B_mat, C_mat, chunk):

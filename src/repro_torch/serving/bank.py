@@ -14,6 +14,11 @@ the device:
     once per contributing bank, in admission order, and leaves the
     pre-apply params intact as the closed window's snapshot.
 
+On a mesh (the server's ``cohort_impl="shard_map"``) banks, head banks and
+snapshots are stored as the params are placed: DTensors whose rows split
+over "cohort" and whose model dims follow the params' shardings (a demoted
+int8 snapshot is kept whole).
+
 Partial-model personalization (``subset=``): banked rows and retained
 snapshots hold only the personal leaves; the shared backbone is stored once
 (``_base``) and recombined on demand.  This is exact: subset applies never
@@ -47,6 +52,7 @@ from repro_torch.core.subset import SubsetSpec, merge_subset
 from repro_torch.core.subset import row_nbytes as _row_nbytes
 from repro_torch.core.types import ServerState
 from repro_torch.fl.engine import DeltaBank
+from repro_torch.sharding.ctx import gather
 
 
 class DeltaRing:
@@ -194,8 +200,12 @@ class DeltaRing:
         were first admitted from; the weights fold β/M, per-row damping and
         padding masks (:func:`admission_weights`, shared with the buffered
         schedule) or, with ``robust`` set, the window-wide robust weights.
-        Returns the post-apply state; the pre-apply params become the
-        closed window's snapshot.
+        Each apply gets the window's admission order (submit order, by the
+        batcher's contract): on a bank that spans devices the rows
+        accumulate in that order, so the post-advance params are the same
+        bits on the 1-D and 2-D mesh layouts although the two place users
+        at different rows.  Returns the post-apply state; the pre-apply
+        params become the closed window's snapshot.
         """
         m = len(self._pending)
         if m:
@@ -221,10 +231,18 @@ class DeltaRing:
                         bank.capacity, rows, beta=beta, count=m,
                         damping=damping, tau_max=self.tau_max)
                     stack = bank.stacked
+                # admission order, deduped (a twice-admitted row already
+                # carries its summed weight), then the zero-weight rest: a
+                # full permutation for the ordered apply of a sharded bank
+                order = list(dict.fromkeys(r for r, _ in rows))
+                seen = set(order)
+                order.extend(r for r in range(bank.capacity)
+                             if r not in seen)
                 state = apply_admitted_rows(
                     state, stack, weights, len(rows),
                     staleness_max=max(t for _, t in rows),
-                    staleness_sum=float(sum(t for _, t in rows)))
+                    staleness_sum=float(sum(t for _, t in rows)),
+                    order=order)
         self._pending = []
         self._user_rows = {}
         self.stats["windows"] += 1
@@ -238,7 +256,9 @@ class DeltaRing:
             prev = self.current - 1
             if prev in self._snapshots \
                     and not isinstance(self._snapshots[prev], QuantTree):
-                self._snapshots[prev] = quantize_tree(self._snapshots[prev])
+                # (whole: a placed snapshot is gathered first)
+                self._snapshots[prev] = quantize_tree(
+                    gather(self._snapshots[prev]))
         horizon = self.current - self.windows + 1
         for w in [w for w in self._snapshots if w < horizon]:
             del self._snapshots[w]

@@ -13,13 +13,20 @@ Fairness: ``user_cap`` bounds how many of one user's rows are admitted per
 aggregation window; over-cap requests are refused before they take a cohort
 slot (``status="capped"``) and counted in ``stats["fairness_capped"]``.
 
-The reference's cohort-slice-major layout for a sharded cohort comes with
-the multi-device slice; here every cohort is one slice, so a drain's rows
-are its requests in submit order (``shard_padding`` stays 0).
+Under ``cohort_impl="shard_map"`` the batcher lays the cohort out
+cohort-slice-major: user ``u`` always takes a slot in cohort slice
+``crc32(u) % n_slices``, where ``n_slices`` is the mesh's cohort-axis size,
+so the user's delta row lands on the same slice every window.  Per-slice
+slots pad to a common pow2 (counted in ``stats["shard_padding"]``), which
+is the engine's slice-multiple bucket.  The ``placed`` list a drain yields
+stays in SUBMIT order: the admission order the ring hands to the ordered
+window apply, the same on every mesh layout.  With one slice a drain's rows
+are its requests in submit order.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.core.types import PersAFLConfig
@@ -66,6 +73,10 @@ class Ticket:
         default=None, repr=False, compare=False)
 
 
+def _pow2(k: int) -> int:
+    return 1 << max(k - 1, 0).bit_length()
+
+
 class MicroBatcher:
     """Coalesces concurrent personalization requests into cohort calls.
 
@@ -76,8 +87,9 @@ class MicroBatcher:
     """
 
     def __init__(self, engines: Dict[str, CohortEngine],
-                 user_cap: Optional[int] = None):
+                 n_shards: int = 1, user_cap: Optional[int] = None):
         self.engines = engines
+        self.n_shards = max(int(n_shards), 1)
         self.user_cap = user_cap
         self._queue: List[Tuple[Ticket, Dict]] = []
         # per-user rows admitted to the window currently accumulating
@@ -97,6 +109,38 @@ class MicroBatcher:
         self.stats["submitted"] += 1
         self._queue.append((ticket, batch))
         return ticket
+
+    def _shard(self, user) -> int:
+        return zlib.crc32(str(user).encode()) % self.n_shards
+
+    def _layout(self, reqs: List[Tuple[Ticket, Dict]]):
+        """Slice-major cohort layout -> (batch_list, [(ticket, row)]), as the
+        reference's.  With one cohort slice the engine's tail padding does;
+        with N the per-slice slot count pads to a pow2, so the total is the
+        engine's slice-multiple bucket (row i on cohort slice i //
+        per_slice).  ``placed`` is in SUBMIT order whichever slice each
+        request landed on."""
+        if self.n_shards == 1:
+            return ([b for _, b in reqs],
+                    [(t, i) for i, (t, _) in enumerate(reqs)])
+        shards: List[List[Tuple[int, Dict]]] = \
+            [[] for _ in range(self.n_shards)]
+        for qi, (t, b) in enumerate(reqs):
+            shards[self._shard(t.user)].append((qi, b))
+        per = _pow2(max(len(s) for s in shards))
+        fill = reqs[-1][1]
+        batch_list, row_of = [], {}
+        for si, s in enumerate(shards):
+            for j in range(per):
+                if j < len(s):
+                    qi, b = s[j]
+                    batch_list.append(b)
+                    row_of[qi] = si * per + j
+                else:
+                    batch_list.append(fill)
+                    self.stats["shard_padding"] += 1
+        return batch_list, [(t, row_of[qi])
+                            for qi, (t, _) in enumerate(reqs)]
 
     def drain(self, current: int, snapshot_fn: Callable[[int], object], *,
               tau_max: int) -> Iterator[Tuple[str, int, DeltaBank,
@@ -136,7 +180,8 @@ class MicroBatcher:
                 (ticket, batch))
         for (mode, stamp), reqs in sorted(groups.items(),
                                           key=lambda kv: kv[0][1]):
+            batch_list, placed = self._layout(reqs)
             self.stats["cohort_calls"] += 1
             bank = self.engines[mode].update_cohort(snapshot_fn(stamp),
-                                                    [b for _, b in reqs])
-            yield mode, stamp, bank, [(t, i) for i, (t, _) in enumerate(reqs)]
+                                                    batch_list)
+            yield mode, stamp, bank, placed

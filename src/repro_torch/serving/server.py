@@ -34,8 +34,20 @@ next delta before it is quantized.  Heads are lazy
 gather), and the window apply sends the :class:`QuantStack` to the
 ``apply_rows_q`` kernel.
 
-The socket front-end is :mod:`repro_torch.serving.transport`; the
-reference's mesh-sharded engines are not ported yet.
+On a mesh (``cohort_impl="shard_map"``, ``mesh=``, ``param_shardings=``)
+every rank of a ``torch.distributed`` ``DeviceMesh`` runs the same server
+with the same submits (:mod:`repro_torch.sharding.ctx`): user cohorts split
+over the "cohort" axis, the batcher keys users to cohort slices, and the
+params, ring snapshots, delta banks and head banks are stored placed by
+``param_shardings`` (model dims over "model").  Served heads and the params
+after each window are the same bits on every mesh layout; polling a head is
+a collective (the row comes from the rank that owns it, whole on every
+rank).  Under int8 banking each rank quantizes its own rows at full
+width (a row's scale is its own), so the codes are the same bits on every
+layout; the codes are then placed as the fp32 rows were.  A demoted int8
+snapshot is kept whole on every rank.
+
+The socket front-end is :mod:`repro_torch.serving.transport`.
 """
 from __future__ import annotations
 
@@ -57,10 +69,8 @@ from repro_torch.fl.engine import CohortEngine, DeltaBank
 from repro_torch.serving.bank import DeltaRing
 from repro_torch.serving.batcher import (MODES, MicroBatcher, Ticket,
                                          personalize_strategy)
+from repro_torch.sharding import ctx
 from repro_torch.tree import tree_leaves, tree_map
-
-_MULTI_DEVICE = ("the port's multi-device slice (ROADMAP.md Queue 1, "
-                 "multi-device paths)")
 
 
 def _index(rows, device) -> torch.Tensor:
@@ -76,24 +86,33 @@ def _on(tree, device):
 def _row_of(handle, row: int):
     """One head row from a ticket/cache handle, on the device either way:
     a view of an fp32 head bank, a dequantizing gather of a lazy
-    :class:`QuantizedHeads`."""
+    :class:`QuantizedHeads`; a placed head bank's row comes whole from the
+    rank that owns it."""
     if isinstance(handle, QuantizedHeads):
         return handle.row(row)
-    return tree_map(lambda x: x[row], handle.stacked)
+    return tree_map(lambda x: ctx.gather(ctx.take_row(x, row))
+                    if ctx.is_sharded(x) else x[row], handle.stacked)
 
 
 def _rows_of(handle, rows):
     if isinstance(handle, QuantizedHeads):
         return handle.rows(rows)
-    idx = _index(rows, tree_leaves(handle.stacked)[0].device)
+    leaf = tree_leaves(handle.stacked)[0]
+    if ctx.is_sharded(leaf):
+        return tree_map(lambda *xs: torch.stack(xs),
+                        *[_row_of(handle, r) for r in rows])
+    idx = _index(rows, leaf.device)
     return tree_map(lambda x: x.index_select(0, idx), handle.stacked)
 
 
 def _heads_of(snap, stack):
     """The stacked head bank ``snap − stack`` in f32, stored in the params'
-    dtypes."""
-    return tree_map(lambda p, d: (p[None].float() - d).to(p.dtype), snap,
-                    stack)
+    dtypes; a placed delta stack gives a head bank placed as it is, each
+    rank subtracting its own rows from its piece of the snapshot."""
+    def one(p, d):
+        head = (ctx.row_piece(p, d)[None].float() - ctx.local(d)).to(p.dtype)
+        return ctx.like(head, d)
+    return tree_map(one, snap, stack)
 
 
 class PersonalizationServer:
@@ -118,8 +137,15 @@ class PersonalizationServer:
                   error feedback)
     robust      : ``None``, ``"clip"`` or ``"trim"`` window apply, with
                   ``clip_norm`` / ``trim_frac``
-    device      : the card unless ``"cpu"``; raises without a GPU
-    mesh, param_shardings : not ported; raise ``NotImplementedError``
+    device      : the card unless ``"cpu"``; raises without a GPU (on a
+                  mesh: this rank's device)
+    mesh        : the ``DeviceMesh`` of the shard_map engines, 1-D
+                  ``("cohort",)`` or 2-D ``("cohort", "model")``; defaults
+                  to the :func:`use_mesh` context's, else the 1-D mesh
+    param_shardings : a params-shaped tree of
+                  :class:`repro_torch.sharding.rules.NamedSharding`: the
+                  placement of the params, the snapshots and the model dims
+                  of every bank and head row; forwarded to every engine
     """
 
     def __init__(self, init_params, loss_fn: Callable,
@@ -132,11 +158,6 @@ class PersonalizationServer:
                  clip_norm: Optional[float] = None,
                  trim_frac: float = 0.1,
                  mesh=None, param_shardings=None, device="cuda"):
-        if mesh is not None or param_shardings is not None \
-                or cohort_impl == "shard_map":
-            raise NotImplementedError(
-                f"mesh, param_shardings and cohort_impl='shard_map' come "
-                f"with {_MULTI_DEVICE}")
         self.device = resolve_device(device)
         self.pcfg = pcfg
         self.loss_fn = loss_fn
@@ -152,6 +173,7 @@ class PersonalizationServer:
         for mode in modes:
             eng = CohortEngine(
                 pcfg, loss_fn, cohort_impl=cohort_impl, device=self.device,
+                mesh=mesh, param_shardings=param_shardings,
                 strategy=personalize_strategy(
                     pcfg, loss_fn, mode,
                     personal_subset=self.personal_subset))
@@ -164,6 +186,10 @@ class PersonalizationServer:
             raise ValueError("need at least one personalization mode")
         self.engines = engines
         self._engine_stats = shared_stats
+        # placed up front: snapshots, delta banks and head rows follow the
+        # params they were computed against
+        self.state.params = next(iter(engines.values())).place_params(
+            self.state.params)
 
         self.ring = DeltaRing(self.state.params, windows=windows,
                               tau_max=tau_max, user_cap=user_cap,
@@ -175,7 +201,9 @@ class PersonalizationServer:
                 eng.add_bank_hook(self.ring.retain)   # bank handoff
         # under int8 the fp32 cohort bank is transient: the flush quantizes
         # it and retains only the QuantizedBank
-        self.batcher = MicroBatcher(engines, user_cap=user_cap)
+        n_shards = max(eng._ndev for eng in engines.values())
+        self.batcher = MicroBatcher(engines, n_shards=n_shards,
+                                    user_cap=user_cap)
         # user -> (heads handle, row): on the device, LRU-evicted
         self._heads: "collections.OrderedDict" = collections.OrderedDict()
         # user -> (residual QuantizedBank, row): the quantization error of
@@ -250,16 +278,27 @@ class PersonalizationServer:
 
     def _quantize_bank(self, bank: DeltaBank, placed):
         """int8-quantize a cohort's delta stack with error feedback; returns
-        ``(delta QuantizedBank, residual QuantizedBank)``."""
-        residual = self._residual_stack(bank.stacked, placed)
-        qstack, resstack = ef_quantize_stack(bank.stacked, residual)
-        return (QuantizedBank(qstack, k=bank.k),
-                QuantizedBank(resstack, k=bank.k))
+        ``(delta QuantizedBank, residual QuantizedBank)``.  A placed stack
+        is quantized one rank's rows at a time, at full row width, and the
+        codes placed back as its rows were."""
+        raw = bank.stacked
+        start, _ = ctx.row_block(tree_leaves(raw)[0])
+        mine = tree_map(ctx.cohort_rows, raw)
+        residual = self._residual_stack(mine, placed, start)
+        qstack, resstack = ef_quantize_stack(mine, residual)
 
-    def _residual_stack(self, raw, placed):
-        """f32 residual stack row-aligned with ``raw`` (None if no placed
-        user has a banked residual); one dequantizing gather per source
-        bank.  A user twice in one cohort is credited once (first row)."""
+        def place(qs):
+            return QuantStack(
+                q=tree_map(ctx.place_like_rows, qs.q, raw),
+                scales=tree_map(ctx.place_like_rows, qs.scales, raw))
+        return (QuantizedBank(place(qstack), k=bank.k),
+                QuantizedBank(place(resstack), k=bank.k))
+
+    def _residual_stack(self, raw, placed, start: int = 0):
+        """f32 residual stack row-aligned with ``raw`` (the rows from
+        ``start`` on of the cohort; None if no placed user has a banked
+        residual); one dequantizing gather per source bank.  A user twice
+        in one cohort is credited once (first row)."""
         seen = set()
         groups: Dict[int, list] = {}
         for ticket, row in placed:
@@ -275,11 +314,19 @@ class PersonalizationServer:
             return None
         out = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                              device=x.device), raw)
+        n = tree_leaves(raw)[0].shape[0]
         for src_bank, src_rows, dst_rows in groups.values():
+            # every rank gathers every source row (a collective on a mesh)
+            # and keeps those of its own block
             vals = src_bank.rows(src_rows)
-            dst = _index(dst_rows, self.device)
-            tree_map(lambda o, v: o.index_copy_(0, dst, v.float()), out,
-                     vals)
+            keep = [j for j, r in enumerate(dst_rows)
+                    if start <= r < start + n]
+            if not keep:
+                continue
+            dst = _index([dst_rows[j] - start for j in keep], self.device)
+            sel = _index(keep, self.device)
+            tree_map(lambda o, v: o.index_copy_(
+                0, dst, v.index_select(0, sel).float()), out, vals)
         return out
 
     def _cache_residual(self, user, resbank: QuantizedBank,
@@ -388,7 +435,7 @@ class PersonalizationServer:
             groups.setdefault(id(src_bank), [src_bank, [], []])
             groups[id(src_bank)][1].append(src_row)
             groups[id(src_bank)][2].append(i)
-        template = next(iter(groups.values()))[0].stacked
+        template = ctx.gather(next(iter(groups.values()))[0].stacked)
         n = len(users)
         q = tree_map(lambda x: torch.zeros((n,) + tuple(x.shape[1:]),
                                            dtype=x.dtype, device=x.device),
@@ -398,12 +445,13 @@ class PersonalizationServer:
         for src_bank, src_rows, dst_rows in groups.values():
             src = _index(src_rows, self.device)
             dst = _index(dst_rows, self.device)
+            stack = ctx.gather(src_bank.stacked)   # a placed bank, whole
             tree_map(lambda o, x: o.index_copy_(0, dst,
                                                 x.index_select(0, src)),
-                     q, src_bank.stacked.q)
+                     q, stack.q)
             tree_map(lambda o, x: o.index_copy_(0, dst,
                                                 x.index_select(0, src)),
-                     s, src_bank.stacked.scales)
+                     s, stack.scales)
         return QuantStack(q=q, scales=s), users
 
     def save(self, path: str) -> None:
@@ -416,8 +464,9 @@ class PersonalizationServer:
         users = list(self._heads)
         res_stack, res_users = self._gathered_residuals()
         tree = {
-            "server_state": self.state.as_dict(),
-            "ring_snapshots": {f"w{w}": self._ckpt_snap(snap)
+            # placed params and snapshots are saved whole
+            "server_state": ctx.gather(self.state.as_dict()),
+            "ring_snapshots": {f"w{w}": self._ckpt_snap(ctx.gather(snap))
                                for w, snap in self.ring._snapshots.items()},
             "head_stack": self.stacked_heads(users) if users else None,
             "residuals": ({"q": res_stack.q, "scales": res_stack.scales}

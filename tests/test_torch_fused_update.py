@@ -293,9 +293,16 @@ def test_tree_fronts_refuse_kernel_on_cpu_and_unknown_modes(mode):
     w = {"a": torch.zeros(3)}
     with pytest.raises(ValueError):
         ops.apply_delta_tree(w, {"a": torch.ones(3)}, 1.0, mode=mode)
-    with pytest.raises(ValueError):
-        ops.apply_rows_tree(w, {"a": torch.ones(2, 3)}, torch.ones(2),
-                            mode=mode)
+    if mode == "seq":
+        # only the stacked applies take the sequential mode
+        out = ops.apply_rows_tree(w, {"a": torch.ones(2, 3)},
+                                  torch.tensor([0.25, 0.5]), mode=mode)
+        np.testing.assert_array_equal(out["a"].numpy(),
+                                      np.full(3, -0.75, np.float32))
+    else:
+        with pytest.raises(ValueError):
+            ops.apply_rows_tree(w, {"a": torch.ones(2, 3)}, torch.ones(2),
+                                mode=mode)
     for front, args in ((ops.sgd_step_tree, (w, w, 0.1)),
                         (ops.prox_inner_tree, (w, w, w, 0.1, 2.0)),
                         (ops.prox_outer_tree, (w, w, 0.1, 2.0))):

@@ -23,7 +23,9 @@ from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
+import torch.distributed as dist
 print(json.dumps({"modules": names, "bad": bad,
+                  "group": dist.is_initialized(),
                   "loaded": sorted(_build._LOADED)}))
 """
 
@@ -38,6 +40,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert out["loaded"] == []          # no kernel is built at import
+    assert not out["group"]             # no process group at import
     for name in ("repro_torch.fl.api", "repro_torch.fl.engine",
                  "repro_torch.kernels.fused_update.kernel",
                  "repro_torch.core.server", "repro_torch.convert",
@@ -72,5 +75,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.tune.runner", "repro_torch.tune.report",
                  "repro_torch.launch.train", "repro_torch.launch.specs",
                  "repro_torch.optim", "repro_torch.optim.optimizers",
-                 "repro_torch.autodiff"):
+                 "repro_torch.autodiff", "repro_torch.sharding",
+                 "repro_torch.sharding.ctx", "repro_torch.sharding.rules",
+                 "repro_torch.launch.mesh"):
         assert name in out["modules"]

@@ -217,12 +217,20 @@ def test_server_robust_matches_reference(robust):
 
 
 def test_server_refuses_multi_device_and_transport():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # the sharded server needs a process group (tests/test_torch_mesh_
+    # parity.py starts one per spawned rank)
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_distributed"):
         PersonalizationServer(_params(), t_loss, PersAFLConfig(**PCFG),
                               device="cpu", cohort_impl="shard_map")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # a mesh without a "cohort" axis (the production ("data", "model")
+    # layout) cannot carry the cohort
+    production = type("Mesh", (), {"mesh_dim_names": ("data", "model")})()
+    with pytest.raises(ValueError, match="'cohort' axis"):
         PersonalizationServer(_params(), t_loss, PersAFLConfig(**PCFG),
-                              device="cpu", mesh=object())
+                              device="cpu", cohort_impl="shard_map",
+                              mesh=production)
     # the transport is ported: its names are the transport module's
     import repro_torch.serving as serving
     from repro_torch.serving import transport

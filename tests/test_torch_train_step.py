@@ -199,7 +199,18 @@ def test_train_step_applies_at_stale_params():
 
 
 def test_cohort_train_step_names_the_multi_device_queue():
+    """The cohort step is ported (tests/test_torch_cohort_train_step.py runs
+    it on spawned ranks); its mesh needs a process group, which the pytest
+    process never starts, and building one without it says how to start
+    one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        mesh.make_host_mesh()
+    # building the step reads only the mesh's axis names
     cfg = configs.reduce_for_smoke(configs.get_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, multi-device paths"):
-        steps.make_cohort_train_step(cfg, PersAFLConfig(), mesh=None)
+    names = type("Mesh", (), {"mesh_dim_names": ("data", "model")})()
+    assert callable(steps.make_cohort_train_step(cfg, PersAFLConfig(),
+                                                 mesh=names))
